@@ -1,0 +1,1 @@
+"""ops subpackage of the PyTorch port (mirrors surface_multigrid_code_tpu/ops)."""

@@ -1,0 +1,1 @@
+"""ssp subpackage of the PyTorch port (mirrors surface_multigrid_code_tpu/ssp)."""

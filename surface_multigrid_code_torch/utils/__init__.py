@@ -1,0 +1,1 @@
+"""utils subpackage of the PyTorch port (mirrors surface_multigrid_code_tpu/utils)."""
