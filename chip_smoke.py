@@ -7,10 +7,18 @@ Run from the repository root with no arguments:
 
 It needs one CUDA card, ``nvcc`` and ``g++``, no network and no JAX. It
 builds the port's kernels from ``surface_multigrid_code_torch/csrc``, holds
-each against its plain PyTorch version on the card, drives the main path
-(SSP hierarchy -> precompute -> multigrid solve) at icosphere(7) size,
-runs the constrained, multi-column and iterative-refinement solve shapes,
-times V-cycles and kernels against the plain version, and ends with
+each against its plain PyTorch version on the card, and drives the port's
+two paths through their public entry points:
+
+- the static solve (SSP hierarchy -> precompute -> multigrid solve) at
+  icosphere(7) size, then the constrained, multi-column and
+  iterative-refinement solve shapes;
+- the balloon (``models.balloon.run_balloon``, example 06 at its
+  defaults) for 3 steps on bunny_15K and 1 step on the midpoint-subdivided
+  bunny, held against the host sparse-LU oracle.
+
+It times V-cycles, balloon steps and kernels against the plain versions,
+and ends with
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": N}}
 
@@ -38,6 +46,19 @@ KERNELS = {
     "spmv_fused_planes": (3, "surface_multigrid_code_tpu/ops/well.py:1598"),
 }
 SOURCE = "surface_multigrid_code_torch/csrc/spmv.cu"
+BLOCK_KERNELS = {
+    # name: (source, file:line of the TPU kernel it replaces)
+    "bsr_spmv": ("surface_multigrid_code_torch/csrc/bsr_spmv.cu",
+                 "surface_multigrid_code_tpu/ops/well.py:1222"),
+    "ns_sign_apply": ("surface_multigrid_code_torch/csrc/psd.cu",
+                      "surface_multigrid_code_tpu/ops/psd.py:82"),
+}
+# Balloon: example 06 at the run_balloon defaults; the oracle gaps allowed
+# between the multigrid and the direct f64 step (max|disp|, relative): the
+# tol-2e-1 multigrid direction is least accurate in the first step.
+BALLOON_MESH = "bunny_15K_init"
+BALLOON_STEPS = 3
+ORACLE_GAP = (0.1, 0.05, 0.05)
 # Relative tolerance of the plain f32 ico solves. Their f32 residual floor
 # is about 1.5e-5 ||b||: ||b - Az|| is a strongly cancelling difference
 # (|A||z| is ~1000x the residual scale). 1e-4 ||b|| sits above that floor;
@@ -109,7 +130,8 @@ def check_kernels(A, P, dev, seed=0):
                     kw = dict(epi=epi, b=b, u=u, s=s, escale=2.0 / 3.0)
                     y = fused_spmv(Sd, x, **kw)
                     ref = fused_spmv_plain(Sd, x, **kw)
-                    _compare(y, ref, dt, f"{name} C={C} epi={epi} {dt}", errs, C)
+                    _compare(y, ref, dt, f"{name} C={C} epi={epi} {dt}", errs,
+                             kernel_name(C))
                     n_cases += 1
         # one GS color-subset update, in place, per column count
         Ad = csr_from_scipy(A, dev, dt)
@@ -121,7 +143,7 @@ def check_kernels(A, P, dev, seed=0):
             uk, up = u0.clone(), u0.clone()
             fused_spmv(Ad, uk, epi="axpby", u=uk, b=b, s=dinv, rows=rows, out=uk)
             fused_spmv_plain(Ad, up, epi="axpby", u=up, b=b, s=dinv, rows=rows, out=up)
-            _compare(uk, up, dt, f"GS rows C={C} {dt}", errs, C)
+            _compare(uk, up, dt, f"GS rows C={C} {dt}", errs, kernel_name(C))
             n_cases += 1
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -131,7 +153,7 @@ def check_kernels(A, P, dev, seed=0):
     return errs
 
 
-def _compare(y, ref, dt, what, errs, C):
+def _compare(y, ref, dt, what, errs, name):
     if y.shape != ref.shape:
         raise RuntimeError(f"{what}: shape {tuple(y.shape)} != {tuple(ref.shape)}")
     if not bool(torch.isfinite(y).all()):
@@ -140,7 +162,7 @@ def _compare(y, ref, dt, what, errs, C):
     scale = float(ref.abs().max())
     if err > TOL[dt] * scale:
         raise RuntimeError(f"{what}: max|d| {err:.3e} > {TOL[dt]:g} * max|y| {scale:.3e}")
-    errs[kernel_name(C)] = max(errs[kernel_name(C)], err)
+    errs[name] = max(errs.get(name, 0.0), err)
 
 
 # ---------------------------------------------------------------- phases 4, 5
@@ -361,6 +383,271 @@ def timings(depth, V, A, M, datas, dev):
     return vc, ker
 
 
+# ---------------------------------------------------------------- balloon
+
+def balloon_defaults() -> dict:
+    """The keyword defaults of the port's run_balloon (example 06 settings)."""
+    import inspect
+
+    from surface_multigrid_code_torch.models.balloon import run_balloon
+
+    return {k: p.default for k, p in inspect.signature(run_balloon).parameters.items()
+            if p.default is not inspect.Parameter.empty}
+
+
+def balloon_shell(V, F, dev):
+    """The example-06 shell (float64 on dev) and 3-expanded lumped mass."""
+    from surface_multigrid_code_torch.models.balloon import lumped_mass_matrix
+    from surface_multigrid_code_torch.models.shell import ShellEnergy, lame_parameters
+
+    d = balloon_defaults()
+    al, be = lame_parameters(d["young"], d["poisson"])
+    shell = ShellEnergy(V, F, d["thickness"], al, be, d["material"], device=dev)
+    return shell, 1000.0 * lumped_mass_matrix(V, F)
+
+
+def block_hessian(stepper, pos, dev):
+    """The stepper's assembled block Hessian (M + dt^2 K, PSD-projected) at pos."""
+    from surface_multigrid_code_torch.models.shell import psd_project_blocks
+
+    x = torch.as_tensor(np.asarray(pos).reshape(-1), device=dev).to(stepper.dtype)
+    H = [psd_project_blocks(h) for h in stepper._face_blocks(x, stepper._face9(x))]
+    return stepper._assemble(H)
+
+
+def check_block_kernels(V, F, mg, dev, seed=1):
+    """Phase 3 (K3): every epilogue in f32 and f64 on the bunny_15K level-0
+    block Hessian at the rest pose and on its second Galerkin level, kernel
+    against plain version. Returns {"bsr_spmv": max abs error}."""
+    from surface_multigrid_code_torch.models.balloon import BsrBalloonStepper
+    from surface_multigrid_code_torch.ops.bsr_spmv import fused_bsr_spmv, fused_bsr_spmv_plain
+    from surface_multigrid_code_torch.ops.sparse import BSRMatrix
+
+    shell, M = balloon_shell(V, F, dev)
+    stepper = BsrBalloonStepper(shell, M, mg, balloon_defaults()["dt"], dtype=torch.float64)
+    hier = stepper.solver.refresh(block_hessian(stepper, V, dev))
+    rng = np.random.default_rng(seed)
+    errs, n_cases = {}, 0
+    for lv in (0, 2):
+        level = hier.levels[lv]
+        for dt in (torch.float32, torch.float64):
+            A = BSRMatrix(level.A.indptr, level.A.indices,
+                          level.A.blocks.to(dt).contiguous(), level.A.n_cols)
+            n = A.n_rows
+            x, u, b = (torch.as_tensor(rng.standard_normal((n, 3)), device=dev).to(dt)
+                       for _ in range(3))
+            s = level.dinv.to(dt).contiguous()
+            for epi in EPIS:
+                kw = dict(b=b, u=u, s=s, escale=2.0 / 3.0)
+                y = fused_bsr_spmv(A, x, epi, **kw)
+                ref = fused_bsr_spmv_plain(A, x, epi, **kw)
+                _compare(y, ref, dt, f"bsr level {lv} ({n} rows, {A.nnz} blocks) "
+                         f"epi={epi} {dt}", errs, "bsr_spmv")
+                n_cases += 1
+    torch.cuda.synchronize(dev)
+    log(f"phase 3: K3 {n_cases} kernel-vs-plain cases agree on bunny_15K levels 0 "
+        f"({hier.levels[0].A.n_rows} rows) and 2 ({hier.levels[2].A.n_rows} rows); "
+        f"max abs err {errs['bsr_spmv']:.3e}")
+    return errs
+
+
+def scaled_blocks(H):
+    """The blocks psd_project_blocks hands to the sign kernel: Hs / inf-norm."""
+    Hs = 0.5 * (H + H.transpose(-1, -2))
+    s = Hs.abs().sum(dim=-1).amax(dim=-1).clamp_min(1e-30)
+    return (Hs / s[:, None, None]).contiguous()
+
+
+def check_sign_kernel(V, F, pos, dev, seed=2):
+    """Phase 3 (K4), at the pressure-1e6 pose the balloon reached: the
+    31,604 real 9x9 face Hessians and random symmetric 18x18 blocks, f32 and
+    f64, kernel against plain version. Returns {"ns_sign_apply": max abs err}."""
+    from surface_multigrid_code_torch.ops.psd import ns_sign_apply, ns_sign_apply_plain
+
+    shell, _ = balloon_shell(V, F, dev)
+    rng = np.random.default_rng(seed)
+    B = rng.standard_normal((4096, 18, 18))
+    errs, n_neg = {}, 0
+    for dt in (torch.float32, torch.float64):
+        x9 = torch.as_tensor(np.asarray(pos)[F].reshape(-1, 9), device=dev).to(dt)
+        X9 = scaled_blocks(shell.face_hess(x9, shell.abars.to(dt)))
+        X18 = scaled_blocks(torch.as_tensor(B, device=dev).to(dt))
+        for X, what in ((X9, f"{X9.shape[0]} face Hessians 9x9"), (X18, "4096 random 18x18")):
+            Y = ns_sign_apply(X)
+            ref = ns_sign_apply_plain(X)
+            _compare(Y, ref, dt, f"K4 {what} {dt}", errs, "ns_sign_apply")
+        # counted on the host: cuSOLVER's batched eigvalsh refuses 31,604 blocks
+        n_neg = int((torch.linalg.eigvalsh(X9.double().cpu()).min(dim=1).values < -1e-4).sum())
+    torch.cuda.synchronize(dev)
+    log(f"phase 3: K4 kernel-vs-plain agree on the step-{BALLOON_STEPS} pose "
+        f"({n_neg} of {F.shape[0]} scaled face blocks have an eigenvalue below -1e-4) "
+        f"and on random 18x18 blocks; max abs err {errs['ns_sign_apply']:.3e}")
+    return errs
+
+
+def balloon_path(V, F, mg, dev):
+    """Phase 7: run_balloon at its defaults on bunny_15K for BALLOON_STEPS
+    steps and on the midpoint-subdivided bunny for 1 step, f32 on the card.
+    Returns (positions, stats, summary)."""
+    from surface_multigrid_code_torch import mg_precompute
+    from surface_multigrid_code_torch.models.balloon import run_balloon
+    from surface_multigrid_code_torch.utils.synthetic import midpoint_subdivide
+
+    stats, positions, walls = [], [], []
+    it = run_balloon(V, F, n_steps=BALLOON_STEPS, mg=mg, device=dev, stats=stats,
+                     verbose=False)
+    t0 = time.perf_counter()
+    for pos in it:
+        positions.append(pos)
+        walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+    if len(stats) != BALLOON_STEPS or not all(isinstance(s["last_rejected"], int) for s in stats):
+        raise RuntimeError("last_rejected was not recorded for every step")
+    for k, (pos, st) in enumerate(zip(positions, stats)):
+        if pos.shape != V.shape or not np.isfinite(pos).all() or not np.isfinite(st["qdot"]).all():
+            raise RuntimeError(f"balloon step {k}: bad shape or non-finite state")
+        log(f"phase 7: bunny_15K step {k}: max|disp| {np.abs(pos - V).max():.6f}, "
+            f"rejects {st['last_rejected']}, residuals per Newton solve "
+            f"{[r['residuals'] for r in st['newton']]}, unconverged solves "
+            f"{sum(not r['converged'] for r in st['newton'])}, alphas "
+            f"{sorted(set(r['alpha'] for r in st['newton']))}, wall {walls[k]:.3f} s")
+
+    V2, F2, _ = midpoint_subdivide(V, F)
+    t0 = time.perf_counter()
+    mg2 = mg_precompute(V2, F2, verbose=False)
+    t_mg2 = time.perf_counter() - t0
+    stats2 = []
+    t0 = time.perf_counter()
+    (pos2,) = list(run_balloon(V2, F2, n_steps=1, mg=mg2, device=dev, stats=stats2,
+                               verbose=False))
+    wall2 = time.perf_counter() - t0
+    if not np.isfinite(pos2).all() or not isinstance(stats2[0]["last_rejected"], int):
+        raise RuntimeError("subdivided bunny step: non-finite state or no reject count")
+    log(f"phase 7: subdivided bunny |V| {V2.shape[0]} |F| {F2.shape[0]} "
+        f"({3 * V2.shape[0]} DOFs; mg_precompute {t_mg2:.2f} s, levels "
+        f"{[lv.V.shape[0] for lv in mg2]}): max|disp| {np.abs(pos2 - V2).max():.6f}, "
+        f"rejects {stats2[0]['last_rejected']}, residuals per Newton solve "
+        f"{[r['residuals'] for r in stats2[0]['newton']]}, unconverged solves "
+        f"{sum(not r['converged'] for r in stats2[0]['newton'])}, alphas "
+        f"{[r['alpha'] for r in stats2[0]['newton']]}, wall {wall2:.3f} s")
+    summary = {
+        "max_disp": [float(np.abs(p - V).max()) for p in positions],
+        "rejects": [s["last_rejected"] for s in stats],
+        "first_step_wall_s": walls[0],
+        "subdiv": {"nv": int(V2.shape[0]), "nf": int(F2.shape[0]),
+                   "max_disp": float(np.abs(pos2 - V2).max()),
+                   "rejects": stats2[0]["last_rejected"], "wall_s": wall2},
+    }
+    return positions, stats, summary
+
+
+def balloon_oracle(V, F, positions, stats, dev):
+    """Phase 8: every step's max|disp| against the direct f64 step (host
+    splu, psd_project=True) run from the same state. Returns the gaps."""
+    from surface_multigrid_code_torch.models.balloon import (
+        implicit_euler_balloon_direct,
+        inflation_force,
+    )
+
+    d = balloon_defaults()
+    shell, M = balloon_shell(V, F, dev)
+    cur, qd = V.copy(), np.zeros(V.size)
+    gaps = []
+    for k in range(BALLOON_STEPS):
+        t0 = time.perf_counter()
+        fExt = inflation_force(cur, F, d["pressure"])
+        pd, _ = implicit_euler_balloon_direct(shell, M, cur, qd, fExt, d["dt"],
+                                              n_newton=d["n_newton"], verbose=False,
+                                              psd_project=True)
+        mg_disp = float(np.abs(positions[k] - V).max())
+        d_disp = float(np.abs(pd - V).max())
+        gap = abs(mg_disp - d_disp) / d_disp
+        gaps.append(gap)
+        log(f"phase 8: step {k}: max|disp| multigrid {mg_disp:.6f}, direct f64 "
+            f"{d_disp:.6f}, relative gap {gap:.4f} (limit {ORACLE_GAP[k]}); "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not gap <= ORACLE_GAP[k]:
+            raise RuntimeError(f"balloon step {k}: gap {gap:.4f} to the direct step "
+                               f"above {ORACLE_GAP[k]}")
+        cur, qd = positions[k], stats[k]["qdot"]
+    return gaps
+
+
+def balloon_timings(V, F, mg, positions, stats, dev):
+    """Phase 9: ms per balloon step on bunny_15K (f32) from the last state,
+    split per Newton iteration into its phases; the device idle share of a
+    step; K3 and K4 against their plain versions at the step's shapes."""
+    from surface_multigrid_code_torch.models.balloon import (
+        PHASES,
+        BsrBalloonStepper,
+        inflation_force,
+    )
+    from surface_multigrid_code_torch.ops.bsr_spmv import fused_bsr_spmv, fused_bsr_spmv_plain
+    from surface_multigrid_code_torch.ops.psd import ns_sign_apply, ns_sign_apply_plain
+
+    d = balloon_defaults()
+    shell, M = balloon_shell(V, F, dev)
+    stepper = BsrBalloonStepper(shell, M, mg, d["dt"], mg_tolerance=d["mg_tolerance"],
+                                n_newton=d["n_newton"])
+    cur, qd = positions[-1], stats[-1]["qdot"]
+    fExt = inflation_force(cur, F, d["pressure"])
+
+    def one_step():
+        stepper.step(cur, qd, fExt)
+
+    one_step()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    step_ms = float(np.median(walls))
+    stepper.timed = True
+    one_step()
+    stepper.timed = False
+    newton = [{"residuals": r["residuals"], **{p: r[p] * 1e3 for p in PHASES}}
+              for r in stepper.last_newton]
+    tot = {p: sum(r[p] for r in newton) for p in PHASES}
+    busy, n_dev = device_ms(one_step, 1)
+    idle = 1.0 - busy / step_ms
+    log(f"phase 9: bunny_15K balloon step (f32, {stepper.solver.plans[0].n} V, "
+        f"{len(stepper.solver.plans)} levels): {walls} ms wall; per step by phase "
+        f"(ms, timed run with a sync per phase) {tot}; residuals per Newton solve "
+        f"{[r['residuals'] for r in newton]}; device busy {busy:.3f} ms over {n_dev:.0f} "
+        f"device ops, idle share {idle:.4f}")
+
+    # the kernels at the step's shapes, in turns plain, kernel, kernel, plain
+    vals = block_hessian(stepper, cur, dev)
+    lv0 = stepper.solver.refresh(vals).levels[0]
+    g = torch.Generator(device=dev).manual_seed(5)
+    x, b = (torch.randn((lv0.A.n_rows, 3), device=dev, generator=g) for _ in range(2))
+    x9 = torch.as_tensor(np.asarray(cur)[F].reshape(-1, 9), device=dev, dtype=torch.float32)
+    X = scaled_blocks(shell.face_hess(x9, stepper.abars))
+    calls = {
+        "bsr_spmv": (lambda: fused_bsr_spmv(lv0.A, x, "resid_scaled", b=b, s=lv0.dinv),
+                     lambda: fused_bsr_spmv_plain(lv0.A, x, "resid_scaled", b=b, s=lv0.dinv),
+                     f"resid_scaled, level-0 block Hessian {lv0.A.n_rows} rows, "
+                     f"{lv0.A.nnz} blocks"),
+        "ns_sign_apply": (lambda: ns_sign_apply(X), lambda: ns_sign_apply_plain(X),
+                          f"{X.shape[0]} blocks 9x9"),
+    }
+    ker = {}
+    for name, (kern, plain, what) in calls.items():
+        res = {"kernel": [], "plain": [], "kernel_call": [], "plain_call": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = kern if which == "kernel" else plain
+            res[which].append(device_ms(fn, 20)[0])
+            res[which + "_call"].append(cuda_ms(fn, 20))
+        ker[name] = {k: float(np.median(v)) for k, v in res.items()}
+        log(f"phase 9: {name} (f32, {what}): device {res['kernel']} ms vs plain "
+            f"{res['plain']} ms; per call {res['kernel_call']} vs {res['plain_call']} ms")
+    bal = {"step_ms": step_ms, "step_walls_ms": walls, "device_ms": busy,
+           "device_ops": n_dev, "idle_share": idle, "phase_ms": tot, "newton": newton}
+    return bal, ker
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -391,40 +678,85 @@ def main() -> int:
     log(f"host: ico{depth} |V| {V.shape[0]} |F| {F.shape[0]}, mg_precompute {t_mg:.2f} s, "
         f"levels {[lv.V.shape[0] for lv in mg]}")
 
-    # phase 3: kernels against their plain versions
-    errs = check_kernels(A, mg[1].P_full.tocsr(), dev)
+    # phase 3: kernels against their plain versions (K4 follows phase 7,
+    # at the pose the balloon reaches)
+    from surface_multigrid_code_torch import mg_precompute
+    from surface_multigrid_code_torch.ops.bsr_spmv import fused_bsr_spmv, fused_bsr_spmv_plain
+    from surface_multigrid_code_torch.ops.psd import ns_sign_apply, ns_sign_apply_plain
+    from surface_multigrid_code_torch.utils.obj_io import read_obj
+    from surface_multigrid_code_torch.utils.paths import mesh_path
 
-    # phases 4 and 5: the main path and the other solve shapes, counted
-    fused_spmv.launches = 0
-    fused_spmv.planes_launches = 0
-    fused_spmv_plain.calls = 0
+    errs = check_kernels(A, mg[1].P_full.tocsr(), dev)
+    Vb, Fb = read_obj(mesh_path(BALLOON_MESH))
+    t0 = time.perf_counter()
+    mg_b = mg_precompute(Vb, Fb, verbose=False)
+    log(f"host: {BALLOON_MESH} |V| {Vb.shape[0]} |F| {Fb.shape[0]}, mg_precompute "
+        f"{time.perf_counter() - t0:.2f} s, levels {[lv.V.shape[0] for lv in mg_b]}")
+    errs.update(check_block_kernels(Vb, Fb, mg_b, dev))
+
+    counters = {
+        "spmv_fused": lambda: fused_spmv.launches - fused_spmv.planes_launches,
+        "spmv_fused_planes": lambda: fused_spmv.planes_launches,
+        "bsr_spmv": lambda: fused_bsr_spmv.launches,
+        "ns_sign_apply": lambda: ns_sign_apply.launches,
+    }
+    plains = (fused_spmv_plain, fused_bsr_spmv_plain, ns_sign_apply_plain)
+
+    def reset_counts():
+        fused_spmv.launches = fused_spmv.planes_launches = 0
+        fused_bsr_spmv.launches = ns_sign_apply.launches = 0
+        for f in plains:
+            f.calls = 0
+
+    def read_counts(what, needed):
+        torch.cuda.synchronize()
+        got = {name: fn() for name, fn in counters.items()}
+        calls = {f.__name__: f.calls for f in plains}
+        log(f"{what}: launches {got}, plain calls {calls}")
+        if any(calls.values()):
+            raise RuntimeError(f"a plain version ran on the main path ({what})")
+        for name in needed:
+            if got[name] <= 0:
+                raise RuntimeError(f"kernel {name} was not launched on the main path ({what})")
+        return got
+
+    # phases 4 and 5: the static solve and its other shapes, counted
+    reset_counts()
     datas = main_path(depth, V, mg, A, M, dev)
     other_shapes(depth, V, A, M, datas[SmootherType.MULTICOLOR_GS], dev)
-    torch.cuda.synchronize()
-    launches = {
-        "spmv_fused": fused_spmv.launches - fused_spmv.planes_launches,
-        "spmv_fused_planes": fused_spmv.planes_launches,
-    }
-    log(f"phases 4-5: launches {launches}, plain calls {fused_spmv_plain.calls}")
-    if fused_spmv_plain.calls != 0:
-        raise RuntimeError("the plain version ran on the main path")
-    for name, n in launches.items():
-        if n <= 0:
-            raise RuntimeError(f"kernel {name} was not launched on the main path")
+    static = read_counts("phases 4-5", ("spmv_fused", "spmv_fused_planes"))
 
     # phase 6: timing
     vc, ker = timings(depth, V, A, M, datas, dev)
 
+    # phase 7: the balloon path, counted
+    reset_counts()
+    positions, stats, bsum = balloon_path(Vb, Fb, mg_b, dev)
+    balloon = read_counts("phase 7", ("spmv_fused_planes", "bsr_spmv", "ns_sign_apply"))
+    launches = {name: static[name] + balloon[name] for name in counters}
+    errs.update(check_sign_kernel(Vb, Fb, positions[-1], dev))
+
+    # phase 8: the balloon against the direct f64 oracle
+    bsum["oracle_gap"] = balloon_oracle(Vb, Fb, positions, stats, dev)
+
+    # phase 9: balloon and K3/K4 timing
+    bal, bker = balloon_timings(Vb, Fb, mg_b, positions, stats, dev)
+    ker.update(bker)
+
     log(card)
     log(json.dumps({"vcycle": vc, "mesh": f"icosphere({depth})", "dtype": "float32"}))
+    log(json.dumps({"balloon": {**bsum, **bal}, "mesh": BALLOON_MESH, "dtype": "float32",
+                    "launches": balloon}))
     # ms / plain_ms: device time per call (profiler); call_ms / plain_call_ms:
-    # per call between CUDA events over back-to-back calls, host included
+    # per call between CUDA events over back-to-back calls, host included;
+    # launches: phases 4-5 and 7 together
+    sources = {**{n: (SOURCE, rep) for n, (_, rep) in KERNELS.items()}, **BLOCK_KERNELS}
     log(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": rep,
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],
          "ms": ker[name]["kernel"], "plain_ms": ker[name]["plain"],
          "call_ms": ker[name]["kernel_call"], "plain_call_ms": ker[name]["plain_call"]}
-        for name, (_, rep) in KERNELS.items()
+        for name, (src, rep) in sources.items()
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

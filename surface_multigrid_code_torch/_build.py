@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/spmv.cu`` has a plain C interface. It is compiled with ``nvcc`` for
-``sm_90a`` into a shared library under ``surface_multigrid_code_torch/build/``
-at first use, and loaded with ctypes; nothing of PyTorch's headers is
-compiled, which keeps the build to seconds. The library name carries a hash
-of the source and flags, so an edited source is rebuilt. The compiler's
-report (``-Xptxas -v``: registers, spills) is kept beside the library as
-``<name>.log``.
+Every ``csrc/*.cu`` has a plain C interface. Each source is compiled with
+``nvcc`` for ``sm_90a`` into an object, all of them at once in parallel,
+and the objects are linked into one shared library under
+``surface_multigrid_code_torch/build/`` at first use, loaded with ctypes;
+nothing of PyTorch's headers is compiled, which keeps the build to
+seconds. The library name carries a hash of every source and the flags,
+so an edited source is rebuilt. The compiler's report (``-Xptxas -v``:
+registers, spills) is kept beside the library as ``<name>.log``.
 
 A missing ``nvcc`` or a failed build raises: there is no fallback.
 """
@@ -22,11 +23,11 @@ import threading
 from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parent
-_SOURCE = _PKG_DIR / "csrc" / "spmv.cu"
+SOURCES = sorted((_PKG_DIR / "csrc").glob("*.cu"))
 BUILD_DIR = _PKG_DIR / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 _LOCK = threading.Lock()
 _LIB = None
@@ -37,6 +38,20 @@ _d = ctypes.c_double
 # indptr, indices, data, x, y, u, b, s, escale, rows, n, [C,] epi, stream
 _K1_ARGS = [_p, _p, _p, _p, _p, _p, _p, _p, _d, _p, _i, _i, _p]
 _K2_ARGS = [_p, _p, _p, _p, _p, _p, _p, _p, _d, _p, _i, _i, _i, _p]
+# indptr, indices, blocks, x, y, u, b, s, escale, n, epi, stream
+_K3_ARGS = [_p, _p, _p, _p, _p, _p, _p, _p, _d, _i, _i, _p]
+# X, Y, m, d, schedule (host double [2 * steps]), steps, stream
+_K4_ARGS = [_p, _p, _i, _i, _p, _i, _p]
+SIGNATURES = {
+    "smg_spmv_fused_f32": _K1_ARGS,
+    "smg_spmv_fused_f64": _K1_ARGS,
+    "smg_spmv_fused_planes_f32": _K2_ARGS,
+    "smg_spmv_fused_planes_f64": _K2_ARGS,
+    "smg_bsr_spmv_f32": _K3_ARGS,
+    "smg_bsr_spmv_f64": _K3_ARGS,
+    "smg_ns_sign_apply_f32": _K4_ARGS,
+    "smg_ns_sign_apply_f64": _K4_ARGS,
+}
 
 
 def _nvcc() -> str:
@@ -50,20 +65,43 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Compile ``csrc/spmv.cu`` if its library is not built yet; return the path."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + _SOURCE.read_bytes())
-    out = BUILD_DIR / f"libsmg_spmv-{h.hexdigest()[:16]}.so"
+    """Compile ``csrc/*.cu`` if their library is not built yet; return the path."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    out = BUILD_DIR / f"libsmg_kernels-{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(out.name + f".tmp{os.getpid()}")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-        capture_output=True, text=True,
-    )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SOURCE.name}:\n{proc.stderr}")
+    nvcc = _nvcc()
+    tag = f"tmp{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.{tag}.o" for src in SOURCES]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src, obj in zip(SOURCES, objs)
+    ]
+    logs, failed = [], []
+    for src, proc in zip(SOURCES, procs):
+        stdout, stderr = proc.communicate()
+        logs.append(f"== {src.name}\n{stdout}{stderr}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name}:\n{stderr}")
+    tmp = out.with_name(out.name + f".{tag}")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link:\n{link.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("\n".join(logs))
+    if failed:
+        raise RuntimeError("nvcc failed on " + "\n".join(failed))
     os.replace(tmp, out)
     return out
 
@@ -74,12 +112,7 @@ def load_library() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(library_path()))
-            for name, args in (
-                ("smg_spmv_fused_f32", _K1_ARGS),
-                ("smg_spmv_fused_f64", _K1_ARGS),
-                ("smg_spmv_fused_planes_f32", _K2_ARGS),
-                ("smg_spmv_fused_planes_f64", _K2_ARGS),
-            ):
+            for name, args in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = args
                 fn.restype = ctypes.c_int

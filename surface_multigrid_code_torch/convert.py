@@ -1,4 +1,4 @@
-"""Carry a JAX-package device hierarchy into the port.
+"""Carry JAX-package device state into the port.
 
 ``hierarchy_from_jax`` takes the leaves of a
 ``surface_multigrid_code_tpu.solver.vcycle.DeviceHierarchy`` as numpy
@@ -19,6 +19,12 @@ padding slots (index 0, value 0) are dropped, and so is any stored value
 that is exactly zero, which contributes nothing to a product. The padded
 color groups are de-duplicated, which makes the JAX package's per-row
 ``group_scale`` unnecessary.
+
+``bsr_hierarchy_from_jax`` does the same for a ``solver.bsr.BsrHierarchy``
+(the balloon's block multigrid), and ``shell_state_from_jax`` copies a JAX
+``ShellEnergy``'s rest state (``abars``, ``bbars``) into a port
+``ShellEnergy``, so both packages run their V-cycles and energies on
+identical operators and rest states.
 """
 
 from __future__ import annotations
@@ -27,7 +33,9 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from surface_multigrid_code_torch.ops.sparse import CSRMatrix, csr_from_scipy
+from surface_multigrid_code_torch.models.shell import ShellEnergy
+from surface_multigrid_code_torch.ops.sparse import BSRMatrix, CSRMatrix, csr_from_scipy
+from surface_multigrid_code_torch.solver.bsr import BsrHierarchy, BsrLevel
 from surface_multigrid_code_torch.solver.vcycle import DeviceHierarchy, DeviceLevel
 
 
@@ -65,3 +73,56 @@ def hierarchy_from_jax(levels: list[dict], coarse_inv: np.ndarray, device,
                                None if lam is None else float(lam)))
     C = torch.as_tensor(np.array(coarse_inv, dtype=np.float64)).to(device, dtype)
     return DeviceHierarchy(out, C)
+
+
+def _t(a, device, dtype):
+    return torch.as_tensor(np.array(a, dtype=np.float64)).to(device=device, dtype=dtype)
+
+
+def bsr_hierarchy_from_jax(levels: list[dict], coarse_inv: np.ndarray, device,
+                           dtype: torch.dtype) -> BsrHierarchy:
+    """Build the port's BsrHierarchy from JAX BSR hierarchy leaves.
+
+    Per level, ``levels[lv]`` is a dict with
+
+        "indices": [n, w] int    ELL block-column ids of A
+        "blocks":  [n, w, 3, 3]  ELL blocks of A
+        "gather":  [n, w] int    the plan's ``ell_gather`` of the level
+        "nnz":     int           the plan's ``nnz_out``: gather == nnz marks padding
+        "diag":    [n, 3]
+        "P", "PT": (indices, data) ELL of the scalar transfers, or None at level 0
+        "lam_max": float or None
+
+    Real slots, in row-major order, are the level's canonical CSR order.
+    ``coarse_inv`` is the dense [3nc, 3nc] coarsest inverse.
+    """
+    sizes = [np.asarray(lv["diag"]).shape[0] for lv in levels]
+    out = []
+    for lv, d in enumerate(levels):
+        n = sizes[lv]
+        valid = np.asarray(d["gather"]) < int(d["nnz"])
+        indptr = np.concatenate([[0], np.cumsum(valid.sum(axis=1))]).astype(np.int32)
+        A = BSRMatrix(
+            torch.as_tensor(indptr, device=device),
+            torch.as_tensor(np.asarray(d["indices"])[valid].astype(np.int32), device=device),
+            _t(np.asarray(d["blocks"])[valid], device, dtype).contiguous(),
+            n,
+        )
+        P = PT = None
+        if lv > 0:
+            P = ell_to_csr(*d["P"], n, device, dtype)
+            PT = ell_to_csr(*d["PT"], sizes[lv - 1], device, dtype)
+        lam = d["lam_max"]
+        out.append(BsrLevel(A, _t(d["diag"], device, dtype), P, PT,
+                            None if lam is None else float(lam)))
+    return BsrHierarchy(out, _t(coarse_inv, device, dtype))
+
+
+def shell_state_from_jax(shell: ShellEnergy, abars: np.ndarray,
+                         bbars: np.ndarray | None = None) -> ShellEnergy:
+    """Give a port ShellEnergy the rest metrics ``abars`` [m, 2, 2] (and
+    rest second fundamental forms ``bbars``) of a JAX ShellEnergy; returns it."""
+    shell.abars = _t(abars, shell.device, torch.float64)
+    if bbars is not None:
+        shell.bbars = _t(bbars, shell.device, torch.float64)
+    return shell

@@ -59,11 +59,7 @@ def csr_from_scipy(A: sp.spmatrix, device, dtype=torch.float32) -> CSRMatrix:
 
 def csr_row_ids(A: CSRMatrix) -> torch.Tensor:
     """Row id of every stored nonzero (int64 [nnz])."""
-    counts = (A.indptr[1:] - A.indptr[:-1]).long()
-    return torch.repeat_interleave(
-        torch.arange(A.n_rows, device=A.indptr.device), counts,
-        output_size=A.data.shape[0],
-    )
+    return row_ids(A.indptr, A.data.shape[0])
 
 
 def csr_spmv(A: CSRMatrix, x: torch.Tensor) -> torch.Tensor:
@@ -76,3 +72,52 @@ def csr_spmv(A: CSRMatrix, x: torch.Tensor) -> torch.Tensor:
     prod = A.data[:, None] * x[idx] if x.ndim == 2 else A.data * x[idx]
     y = torch.zeros((A.n_rows, *x.shape[1:]), dtype=x.dtype, device=x.device)
     return y.index_add_(0, csr_row_ids(A), prod)
+
+
+class BSRMatrix(nn.Module):
+    """3x3-block CSR matrix on a device, over a vertex graph.
+
+    indptr:  int32 [n_rows + 1]
+    indices: int32 [nnz] block-column ids
+    blocks:  float [nnz, 3, 3], 9 contiguous row-major values per block
+    n_cols:  int (block columns)
+
+    The counterpart of the JAX package's ELL ``BSRMatrix``
+    (``solver/bsr.py:41``) without its padding slots.
+    """
+
+    def __init__(self, indptr: torch.Tensor, indices: torch.Tensor,
+                 blocks: torch.Tensor, n_cols: int):
+        super().__init__()
+        self.register_buffer("indptr", indptr)
+        self.register_buffer("indices", indices)
+        self.register_buffer("blocks", blocks)
+        self.n_cols = int(n_cols)
+
+    @property
+    def n_rows(self) -> int:
+        return self.indptr.shape[0] - 1
+
+    @property
+    def nnz(self) -> int:
+        return self.indices.shape[0]
+
+    def extra_repr(self) -> str:
+        return f"blocks={self.n_rows}x{self.n_cols}, nnz={self.nnz}, dtype={self.blocks.dtype}"
+
+
+def row_ids(indptr: torch.Tensor, nnz: int) -> torch.Tensor:
+    """Row id of every stored nonzero of a CSR layout (int64 [nnz])."""
+    counts = (indptr[1:] - indptr[:-1]).long()
+    return torch.repeat_interleave(
+        torch.arange(indptr.shape[0] - 1, device=indptr.device), counts,
+        output_size=nnz,
+    )
+
+
+def bsr_spmv(A: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x for x of shape [n_cols, 3] (plain PyTorch): a row gather of
+    x, one 3x3 product per block, and a per-row sum in CSR order."""
+    prod = torch.einsum("kij,kj->ki", A.blocks, x[A.indices.long()])
+    y = torch.zeros((A.n_rows, 3), dtype=x.dtype, device=x.device)
+    return y.index_add_(0, row_ids(A.indptr, A.nnz), prod)

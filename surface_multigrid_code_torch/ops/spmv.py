@@ -44,7 +44,7 @@ def _epilogue(Ax, epi, b, u, s, escale):
     if epi == "add":
         return u + Ax
     sc = s * escale
-    if Ax.ndim == 2:
+    if sc.ndim < Ax.ndim:  # a row-shared scale over C columns
         sc = sc[:, None]
     if epi == "axpby":
         return u + (b - Ax) * sc

@@ -149,3 +149,54 @@ def mg_precompute(
         print(f"numLv: {len(out)}")
         print(f"|V_coarsest|: {out[-1].V.shape[0]}")
     return out
+
+
+def extend_hierarchy(
+    mg: list[MGLevel],
+    ratio: float | None = None,
+    min_coarsest_nv: int = 40,
+    dec_type: "DecimationType | None" = None,
+    verbose: bool = False,
+    seed: int | None = None,
+) -> list[MGLevel]:
+    """Continue decimation below an existing hierarchy's coarsest level,
+    applying the reference level-count rule (src/mg_precompute.cpp:27-40)
+    from the current coarsest mesh downward.
+
+    Steppers that refresh the hierarchy every Newton iteration pay a dense
+    Cholesky inverse of the coarsest operator each time, so they push the
+    hierarchy deeper than the reference's >500-vertex rule. Returns a NEW
+    list; `mg` is not mutated and its level records are shared. (The JAX
+    package's ``block=True`` variant builds 3-expanded prolongations; the
+    port's block solver takes the scalar hierarchy, so it has no such option.)
+    """
+    out = list(mg)
+    # continue with the strategy the hierarchy itself was built with
+    # (recorded on its levels by mg_precompute); hand-built hierarchies
+    # without metadata fall back to the reference defaults
+    if dec_type is None:
+        dec_type = out[-1].dec_type if out[-1].dec_type is not None \
+            else DecimationType.MIDPOINT
+    if ratio is None:
+        ratio = out[-1].ratio if out[-1].ratio is not None else 0.25
+    while out[-1].V.shape[0] * ratio > min_coarsest_nv:
+        tarF = int(round(out[-1].F.shape[0] * ratio))
+        if verbose:
+            print(f"extend lv: {len(out)}, tarF: {tarF}")
+        try:
+            Vc, Fc, P, _, _, _ = get_prolong(
+                out[-1].V, out[-1].F, tarF, dec_type, seed=seed
+            )
+        except RuntimeError as e:  # decimation gave up (tiny/degenerate)
+            import warnings
+
+            warnings.warn(
+                f"extend_hierarchy stopped at level {len(out)}: {e}",
+                stacklevel=2,
+            )
+            break
+        if Vc.shape[0] >= out[-1].V.shape[0]:
+            break
+        out.append(MGLevel(V=Vc, F=Fc, P_full=P, P=P, PT=P.T.tocsr(),
+                           dec_type=dec_type, ratio=ratio))
+    return out

@@ -12,6 +12,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 from surface_multigrid_code_tpu.ops import laplacian as jlap
@@ -92,3 +93,55 @@ def test_port_imports_no_jax():
         capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr
+
+
+def _same_plan_level(a, b):
+    for f in ("gat_idx", "gat_w", "tail_idx", "tail_w", "tail_seg", "ell_gather",
+              "ell_indices", "diag_idx"):
+        x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+        assert x.shape == y.shape and np.array_equal(x, y), f
+    assert (a.nnz_in, a.nnz_out, tuple(a.ell_shape)) == (b.nnz_in, b.nnz_out, tuple(b.ell_shape))
+
+
+def test_galerkin_plan_slot_map_and_extension_bitwise():
+    """build_galerkin_plan, csr_slot_map and extend_hierarchy on icosphere(3)
+    give the JAX package's arrays bit for bit; galerkin_chain its values."""
+    from surface_multigrid_code_tpu.solver import galerkin as jgal
+    from surface_multigrid_code_tpu.solver.hierarchy import extend_hierarchy as jextend
+    from surface_multigrid_code_tpu.solver.refresh import csr_slot_map as jslot
+
+    from surface_multigrid_code_torch.solver import galerkin as tgal
+    from surface_multigrid_code_torch.solver.hierarchy import extend_hierarchy
+    from surface_multigrid_code_torch.solver.refresh import csr_slot_map
+
+    V, F = icosphere(3)
+    mg = mg_precompute(V, F, min_coarsest_nv=100, verbose=False)
+    mgj = jax_mg_precompute(V, F, min_coarsest_nv=100, verbose=False)
+    ext = extend_hierarchy(mg, min_coarsest_nv=10)
+    extj = jextend(mgj, min_coarsest_nv=10)
+    assert len(ext) == len(extj) > len(mg)
+    for lv, lj in zip(ext[1:], extj[1:]):
+        assert np.array_equal(lv.V, lj.V) and np.array_equal(lv.F, lj.F)
+        _same_csr(lv.P_full, lj.P_full)
+
+    A = (tlap.massmatrix(V, F) - 0.01 * tlap.cotmatrix(V, F)).tocsr()
+    Ps = [lv.P_full for lv in ext[1:]]
+    plan = tgal.build_galerkin_plan(A, Ps)
+    planj = jgal.build_galerkin_plan(A, [lv.P_full for lv in extj[1:]])
+    assert len(plan.levels) == len(planj.levels) == len(Ps)
+    for a, b in zip((plan.lvl0, *plan.levels), (planj.lvl0, *planj.levels)):
+        _same_plan_level(a, b)
+        _same_csr(tgal.plan_pattern(a), jgal.plan_pattern(b))
+    As = tgal.galerkin_chain(A, Ps)
+    Aj = jgal.galerkin_chain(A, Ps)
+    for a, b in zip(As, Aj):
+        assert np.array_equal(a.indptr, b.indptr) and np.array_equal(a.indices, b.indices)
+        assert np.abs(a.data - b.data).max() <= 1e-13 * np.abs(b.data).max()
+
+    rng = np.random.default_rng(2)
+    k = rng.integers(0, A.nnz, size=500)
+    rows = np.repeat(np.arange(A.shape[0]), np.diff(A.indptr))[k]
+    cols = A.indices[k]
+    assert np.array_equal(csr_slot_map(A, rows, cols), jslot(A, rows, cols))
+    with pytest.raises(ValueError):
+        csr_slot_map(A, np.array([0]), np.array([A.shape[0] - 1]))
