@@ -41,9 +41,9 @@ import torch
 EPIS = (None, "axpby", "resid", "add", "resid_scaled")
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 KERNELS = {
-    # name: (C of its calls, file:line of the TPU kernel it replaces)
-    "spmv_fused": (1, "surface_multigrid_code_tpu/ops/well.py:871"),
-    "spmv_fused_planes": (3, "surface_multigrid_code_tpu/ops/well.py:1598"),
+    # name: file:line of the TPU kernel it replaces (K1: one column, K2: C)
+    "spmv_fused": "surface_multigrid_code_tpu/ops/well.py:871",
+    "spmv_fused_planes": "surface_multigrid_code_tpu/ops/well.py:1598",
 }
 SOURCE = "surface_multigrid_code_torch/csrc/spmv.cu"
 BLOCK_KERNELS = {
@@ -64,6 +64,10 @@ ORACLE_GAP = (0.1, 0.05, 0.05)
 # (|A||z| is ~1000x the residual scale). 1e-4 ||b|| sits above that floor;
 # tighter tolerances are the refinement path's, run in phase 5.
 REL_TOL = 1e-4
+# Peaks of one H100 SXM (NVIDIA's data sheet) for the bounds: HBM3 bytes
+# per second, and float32 operations per second outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -101,55 +105,106 @@ def ico_system(depth: int):
 
 # ---------------------------------------------------------------- phase 3
 
-def check_kernels(A, P, dev, seed=0):
-    """Every epilogue, C in {1, 3}, f32 and f64, on A, P and PT, plus a GS
-    color-subset call: kernel vs plain version on the same device inputs.
-    Returns {kernel name: max abs error}."""
-    from surface_multigrid_code_torch.ops.smoothers import color_groups, greedy_coloring
+def spmv_operators(A, mg):
+    """The ico system's operators at every level (A_l the Galerkin
+    products, P_l and PT_l), and A_0 with every fifth row emptied."""
+    import scipy.sparse as sp
+
+    ops, Al = {"A_0": A}, A
+    for l in range(1, len(mg)):
+        P = mg[l].P_full.tocsr()
+        Al = (P.T @ Al @ P).tocsr()
+        ops.update({f"A_{l}": Al, f"P_{l}": P, f"PT_{l}": P.T.tocsr()})
+    keep = (np.arange(A.shape[0]) % 5 != 0).astype(np.float64)
+    E = (sp.diags(keep) @ A).tocsr()
+    E.eliminate_zeros()
+    ops["A_0 with empty rows"] = E
+    return ops
+
+
+def check_spmv(S, label, dev, errs, rng, Cs=(1, 2, 3, 4, 5), epis=EPIS, rows=None,
+               lanes=None):
+    """K1/K2 against the plain version on the host operator S, f32 and f64,
+    for each C and epilogue; with ``rows`` one in-place GS color update
+    (axpby, s = 1/diag). ``lanes`` forces the sub-warp width. Returns the
+    number of cases."""
     from surface_multigrid_code_torch.ops.sparse import csr_from_scipy
     from surface_multigrid_code_torch.ops.spmv import fused_spmv, fused_spmv_plain
 
-    rng = np.random.default_rng(seed)
-    ops = {"A": A, "P": P, "PT": P.T.tocsr()}
-    errs = {name: 0.0 for name in KERNELS}
+    n, m = S.shape
     n_cases = 0
-    before = fused_spmv.launches
     for dt in (torch.float32, torch.float64):
         def t(a):
             return torch.as_tensor(a).to(dev, dt)
 
-        for name, S in ops.items():
-            Sd = csr_from_scipy(S, dev, dt)
-            n, m = S.shape
-            s = t(1.0 / A.diagonal()) if name == "A" else t(rng.uniform(0.5, 2.0, n))
-            for C in (1, 3):
-                shp = (n,) if C == 1 else (n, C)
-                x = t(rng.standard_normal((m,) if C == 1 else (m, C)))
-                u, b = t(rng.standard_normal(shp)), t(rng.standard_normal(shp))
-                for epi in EPIS:
-                    kw = dict(epi=epi, b=b, u=u, s=s, escale=2.0 / 3.0)
-                    y = fused_spmv(Sd, x, **kw)
-                    ref = fused_spmv_plain(Sd, x, **kw)
-                    _compare(y, ref, dt, f"{name} C={C} epi={epi} {dt}", errs,
-                             kernel_name(C))
-                    n_cases += 1
-        # one GS color-subset update, in place, per column count
-        Ad = csr_from_scipy(A, dev, dt)
-        dinv = t(1.0 / A.diagonal())
-        rows = torch.as_tensor(color_groups(greedy_coloring(A))[0], device=dev)
-        for C in (1, 3):
-            shp = (A.shape[0],) if C == 1 else (A.shape[0], C)
-            u0, b = t(rng.standard_normal(shp)), t(rng.standard_normal(shp))
-            uk, up = u0.clone(), u0.clone()
-            fused_spmv(Ad, uk, epi="axpby", u=uk, b=b, s=dinv, rows=rows, out=uk)
-            fused_spmv_plain(Ad, up, epi="axpby", u=up, b=b, s=dinv, rows=rows, out=up)
-            _compare(uk, up, dt, f"GS rows C={C} {dt}", errs, kernel_name(C))
-            n_cases += 1
+        Sd = csr_from_scipy(S, dev, dt)
+        if lanes is not None:
+            Sd.lanes = lanes
+        s = t(1.0 / S.diagonal()) if rows is not None else t(rng.uniform(0.5, 2.0, n))
+        r = None if rows is None else torch.as_tensor(rows, device=dev)
+        for C in Cs:
+            shp = (n,) if C == 1 else (n, C)
+            x = t(rng.standard_normal((m,) if C == 1 else (m, C)))
+            u, b = t(rng.standard_normal(shp)), t(rng.standard_normal(shp))
+            n_out = n if rows is None else len(rows)
+            what = f"{label} ({n_out} rows, lanes {run_lanes(Sd, n_out)}) C={C} {dt}"
+            if r is not None:
+                uk, up = u.clone(), u.clone()
+                fused_spmv(Sd, uk, epi="axpby", u=uk, b=b, s=s, rows=r, out=uk)
+                fused_spmv_plain(Sd, up, epi="axpby", u=up, b=b, s=s, rows=r, out=up)
+                _compare(uk, up, dt, f"{what} in place", errs, kernel_name(C))
+                n_cases += 1
+                continue
+            for epi in epis:
+                kw = dict(epi=epi, b=b, u=u, s=s, escale=2.0 / 3.0)
+                _compare(fused_spmv(Sd, x, **kw), fused_spmv_plain(Sd, x, **kw), dt,
+                         f"{what} epi={epi}", errs, kernel_name(C))
+                n_cases += 1
+    return n_cases
+
+
+def run_lanes(S, n_out):
+    """The sub-warp width fused_spmv launches S with over n_out rows (None on the CPU)."""
+    from surface_multigrid_code_torch.ops.spmv import card_threads, launch_lanes
+
+    if S.data.device.type != "cuda":
+        return None
+    return launch_lanes(S.lanes, n_out, card_threads(S.data.device.index or 0))
+
+
+def check_kernels(A, mg, dev, seed=0):
+    """Phase 3 (K1/K2), kernel vs plain version on the same device inputs:
+    every epilogue, C in 1..5, f32 and f64, on A_l, P_l and PT_l of every
+    ico level and on an operator with empty rows; the largest GS color of
+    every smoothed level, in place; the last smoothed level and a color of
+    it at every forced lanes value. Returns {kernel name: max abs error}."""
+    from surface_multigrid_code_torch.ops.smoothers import color_groups, greedy_coloring
+    from surface_multigrid_code_torch.ops.spmv import fused_spmv
+
+    rng = np.random.default_rng(seed)
+    ops = spmv_operators(A, mg)
+    errs = {name: 0.0 for name in KERNELS}
+    before = fused_spmv.launches
+    n_cases = 0
+    for label, S in ops.items():
+        n_cases += check_spmv(S, label, dev, errs, rng)
+    colors = {}
+    for l in range(len(mg) - 1):  # the coarsest level is a dense solve
+        S = ops[f"A_{l}"]
+        colors[l] = max(color_groups(greedy_coloring(S)), key=len)
+        n_cases += check_spmv(S, f"A_{l} largest GS color", dev, errs, rng, rows=colors[l])
+    small = len(mg) - 2  # the last smoothed level (A_3 at ico7) takes any width
+    for lanes in (1, 2, 4, 8, 16, 32):
+        n_cases += check_spmv(ops[f"A_{small}"], f"A_{small} forced", dev, errs, rng,
+                              Cs=(1, 3, 5), epis=(None, "axpby"), lanes=lanes)
+        n_cases += check_spmv(ops[f"A_{small}"], f"A_{small} largest GS color forced", dev,
+                              errs, rng, Cs=(1, 3), rows=colors[small], lanes=lanes)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         if fused_spmv.launches <= before:
             raise RuntimeError("fused_spmv.launches did not grow")
-    log(f"phase 3: {n_cases} kernel-vs-plain cases agree; max abs err {errs}")
+    log(f"phase 3: K1/K2 {n_cases} kernel-vs-plain cases agree on {len(ops)} operators, "
+        f"{len(colors)} GS colors and 6 forced lanes values; max abs err {errs}")
     return errs
 
 
@@ -230,7 +285,8 @@ def main_path(depth, V, mg, A, M, dev):
 
 
 def other_shapes(depth, V, A, M, gs_data, dev):
-    """Phase 5: constrained ogre (ex03), [n, 3] right-hand side, ex04 with refinement."""
+    """Phase 5: constrained ogre (ex03), [n, 3] right-hand side, ex04 with
+    refinement. Returns the ogre's solver data (its PT has the hub rows)."""
     from surface_multigrid_code_torch import mg_precompute, min_quad_with_fixed_mg_precompute
     from surface_multigrid_code_torch.ops.laplacian import cotmatrix, massmatrix
     from surface_multigrid_code_torch.utils.mesh import boundary_vertices, normalize_unit_area
@@ -273,6 +329,7 @@ def other_shapes(depth, V, A, M, gs_data, dev):
         raise RuntimeError("f32 precompute built no f64 finest operator")
     solve_checked(data_b, Bb, "phase 5: ex04 bunny tol 1e-10 (refinement)", 1e-10,
                   A_host=Ab, eps=2.3e-16, known=kb, known_val=np.zeros(kb.size), z0=z0)
+    return data_o
 
 
 # ---------------------------------------------------------------- phase 6
@@ -315,14 +372,15 @@ def device_ms(fn, reps):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not ev:
-        raise RuntimeError("the profiler recorded no device activity")
-    return sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3, len(ev) / reps
+    for _ in range(3):  # a short session now and then records no device event
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if ev:
+            return sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3, len(ev) / reps
+    raise RuntimeError("the profiler recorded no device activity in 3 sessions")
 
 
 def in_turns(run, plain_ctx):
@@ -335,10 +393,8 @@ def in_turns(run, plain_ctx):
     return {k: float(np.median(v)) for k, v in res.items()}, res
 
 
-def timings(depth, V, A, M, datas, dev):
-    """Phase 6: V-cycle and per-kernel times, kernel vs plain, in turns."""
-    from surface_multigrid_code_torch.ops.sparse import csr_from_scipy
-    from surface_multigrid_code_torch.ops.spmv import fused_spmv, fused_spmv_plain
+def timings(depth, V, M, datas, dev):
+    """Phase 6: V-cycle times, kernel vs plain, in turns."""
     from surface_multigrid_code_torch.solver.vcycle import vcycle
 
     b = torch.as_tensor(np.asarray(M @ V[:, 0]), dtype=torch.float32, device=dev)
@@ -363,24 +419,128 @@ def timings(depth, V, A, M, datas, dev):
         log(f"phase 6: ico{depth} V-cycle ({sm.value}, f32): wall kernels {raw['kernel']} ms, "
             f"plain {raw['plain']} ms; device busy {busy:.4f} ms ({n_dev:.0f} device ops), "
             f"plain {busy_p:.4f} ms")
+    return vc
 
-    Ad = csr_from_scipy(A, dev, torch.float32)
-    dinv = torch.as_tensor(1.0 / A.diagonal(), dtype=torch.float32, device=dev)
-    ker = {}
-    for name, (C, _) in KERNELS.items():
-        shp = (A.shape[0],) if C == 1 else (A.shape[0], C)
-        g = torch.Generator(device=dev).manual_seed(C)
-        x, u, bb = (torch.randn(shp, device=dev, generator=g) for _ in range(3))
-        kw = dict(epi="axpby", u=u, b=bb, s=dinv, escale=2.0 / 3.0)
-        res = {}
-        for which, f in (("kernel", fused_spmv), ("plain", fused_spmv_plain)):
-            res[which] = device_ms(lambda: f(Ad, x, **kw), 50)[0]
-            res[which + "_call"] = cuda_ms(lambda: f(Ad, x, **kw), 50)
-        ker[name] = res
-        log(f"phase 6: {name} (axpby, f32, ico{depth} level-0 A, C={C}): device "
-            f"{res['kernel']:.5f} ms vs plain {res['plain']:.5f} ms; per call "
-            f"{res['kernel_call']:.5f} vs {res['plain_call']:.5f} ms")
-    return vc, ker
+
+def host_csr(S):
+    """A device CSRMatrix as a scipy CSR on the host."""
+    import scipy.sparse as sp
+
+    return sp.csr_matrix((S.data.double().cpu().numpy(), S.indices.cpu().numpy(),
+                          S.indptr.cpu().numpy()), shape=S.shape)
+
+
+def bound_ms(nbytes, flops):
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the f32 CUDA-core peak, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def spmv_bytes(H, C, epi, rows=None, itemsize=4):
+    """Bytes one fused SpMV must move, each input read once and each output
+    written once: the rows' index range (and row ids), their nonzeros'
+    indices and values, the x rows they gather, the epilogue operands and
+    y. With a row subset the update is in place: u is x, and its rows are
+    among the gathered ones (every row stores its diagonal)."""
+    sub = H if rows is None else H[rows]
+    n_out = sub.shape[0]
+    per = n_out * C * itemsize
+    nbytes = 4 * (H.shape[0] + 1) if rows is None else 12 * n_out
+    nbytes += sub.nnz * (4 + itemsize) + np.unique(sub.indices).size * C * itemsize + per
+    ops = {None: "", "axpby": "ubs", "resid": "b", "add": "u", "resid_scaled": "bs"}[epi]
+    nbytes += per * (("b" in ops) + ("u" in ops and rows is None)) + ("s" in ops) * n_out * itemsize
+    return nbytes, 2 * sub.nnz * C
+
+
+def spmv_cases(gs_hier, ogre_hier, dev):
+    """The K1/K2 shapes of the static path: (label, operator, C, epi, rows, s)."""
+    from surface_multigrid_code_torch.ops.sparse import csr_from_scipy
+
+    lv = gs_hier.levels
+    smoothed = range(len(lv) - 1)  # the coarsest level is a dense solve
+    cases = []
+    for l in smoothed:
+        cases.append((f"A_{l} axpby", lv[l].A, 1, "axpby", None, lv[l].dinv))
+    for l in smoothed:
+        g = max(lv[l].groups, key=lambda r: r.shape[0])
+        cases.append((f"A_{l} largest GS color, in place", lv[l].A, 1, "axpby", g, lv[l].dinv))
+    for l in range(1, len(lv)):
+        cases.append((f"P_{l} add", lv[l].P, 1, "add", None, None))
+        cases.append((f"PT_{l}", lv[l].PT, 1, None, None, None))
+    hub = max(range(1, len(ogre_hier.levels)),
+              key=lambda l: int(ogre_hier.levels[l].PT.indptr.diff().max()))
+    cases.append((f"ogre constrained PT_{hub} (hub rows)", ogre_hier.levels[hub].PT, 1,
+                  None, None, None))
+    for l in smoothed[:2]:
+        cases.append((f"A_{l} axpby C=3", lv[l].A, 3, "axpby", None, lv[l].dinv))
+    floor = csr_from_scipy(host_csr(lv[0].A)[:32], dev)
+    cases.append(("launch floor: A_0[:32] axpby", floor, 1, "axpby", None, lv[0].dinv[:32]))
+    return cases
+
+
+def spmv_shapes(cases, dev, reps=20):
+    """Phase 6: K1/K2 at every shape of the static path. Per shape: device
+    time (profiler) and per-call time (events) of the kernel and of one
+    cuSPARSE call of the same SpMV (``torch.sparse_csr_tensor @ x``, on a
+    CSR of the same rows built outside the timed region; a yardstick the
+    port never calls), in turns kernel, library, library, kernel; the
+    plain version too at the A_0 shapes. Returns one record per shape."""
+    from surface_multigrid_code_torch.ops.spmv import fused_spmv, fused_spmv_plain
+
+    out = []
+    for k, (label, S, C, epi, rows, s) in enumerate(cases):
+        H = host_csr(S)
+        n, m = S.shape
+        g = torch.Generator(device=dev).manual_seed(100 + k)
+
+        def rnd(r):
+            return torch.randn((r,) if C == 1 else (r, C), device=dev, generator=g)
+
+        x, u, b = rnd(m), rnd(n), rnd(n)
+        if s is None:
+            s = torch.rand(n, device=dev, generator=g) + 0.5
+        kw = dict(epi=epi, u=u, b=b, s=s, escale=2.0 / 3.0)
+        host_rows = None
+        if rows is not None:
+            x = u
+            kw.update(u=x, rows=rows, out=x)
+            host_rows = rows.cpu().numpy()
+        L = H if rows is None else H[host_rows]
+        lib_A = torch.sparse_csr_tensor(
+            torch.as_tensor(L.indptr, dtype=torch.int32, device=dev),
+            torch.as_tensor(L.indices, dtype=torch.int32, device=dev),
+            torch.as_tensor(L.data, dtype=torch.float32, device=dev), size=L.shape)
+        fns = {"kernel": lambda: fused_spmv(S, x, **kw), "library": lambda: lib_A @ x}
+        turns = ["kernel", "library", "library", "kernel"]
+        if label.startswith("A_0 axpby"):
+            fns["plain"] = lambda: fused_spmv_plain(S, x, **kw)
+            turns = ["plain", *turns, "plain"]
+        dev_ms = {w: [] for w in fns}
+        call_ms = {w: [] for w in fns}
+        for w in turns:
+            dev_ms[w].append(device_ms(fns[w], reps)[0])
+            call_ms[w].append(cuda_ms(fns[w], reps))
+        nbytes, flops = spmv_bytes(H, C, epi, host_rows)
+        bms, by = bound_ms(nbytes, flops)
+        rec = {"shape": label, "C": C, "rows": int(L.shape[0]), "nnz": int(L.nnz),
+               "max_row": int(np.diff(L.indptr).max()) if L.shape[0] else 0,
+               "row_lanes": S.lanes, "lanes": run_lanes(S, int(L.shape[0])),
+               "bytes": int(nbytes),
+               "bound_ms": bms, "bound_by": by}
+        for w in fns:
+            rec[f"{w}_ms"] = float(np.median(dev_ms[w]))
+            rec[f"{w}_call_ms"] = float(np.median(call_ms[w]))
+        out.append(rec)
+        log(f"phase 6: {kernel_name(C)} {label}: {rec['rows']} rows, {rec['nnz']} nnz "
+            f"(max row {rec['max_row']}), lanes {rec['lanes']} of {rec['row_lanes']}; "
+            f"bound {1e3 * bms:.3f} us "
+            f"({nbytes} B); device kernel {[1e3 * t for t in dev_ms['kernel']]} us, "
+            f"cuSPARSE {[1e3 * t for t in dev_ms['library']]} us"
+            + (f", plain {[1e3 * t for t in dev_ms['plain']]} us" if "plain" in fns else "")
+            + f"; per call kernel {1e3 * rec['kernel_call_ms']:.2f} us, cuSPARSE "
+            f"{1e3 * rec['library_call_ms']:.2f} us")
+    return out
 
 
 # ---------------------------------------------------------------- balloon
@@ -583,7 +743,11 @@ def balloon_timings(V, F, mg, positions, stats, dev):
         inflation_force,
     )
     from surface_multigrid_code_torch.ops.bsr_spmv import fused_bsr_spmv, fused_bsr_spmv_plain
-    from surface_multigrid_code_torch.ops.psd import ns_sign_apply, ns_sign_apply_plain
+    from surface_multigrid_code_torch.ops.psd import (
+        NS_SCHEDULE,
+        ns_sign_apply,
+        ns_sign_apply_plain,
+    )
 
     d = balloon_defaults()
     shell, M = balloon_shell(V, F, dev)
@@ -625,24 +789,48 @@ def balloon_timings(V, F, mg, positions, stats, dev):
     x, b = (torch.randn((lv0.A.n_rows, 3), device=dev, generator=g) for _ in range(2))
     x9 = torch.as_tensor(np.asarray(cur)[F].reshape(-1, 9), device=dev, dtype=torch.float32)
     X = scaled_blocks(shell.face_hess(x9, stepper.abars))
+    A0, m, d = lv0.A, X.shape[0], X.shape[1]
+    # one cuSPARSE bsrmv of the same product, where torch takes the layout
+    # on the card (a yardstick the port never calls)
+    try:
+        lib_A = torch.sparse_bsr_tensor(A0.indptr, A0.indices, A0.blocks,
+                                        size=(3 * A0.n_rows, 3 * A0.n_cols))
+        xf = x.reshape(-1)
+        (lib_A @ xf).sum().item()
+        k3_lib, k3_lib_err = (lambda: lib_A @ xf), None
+    except (RuntimeError, NotImplementedError) as e:
+        k3_lib, k3_lib_err = None, f"{type(e).__name__}: {e}".splitlines()[0]
+        log(f"phase 9: bsr_spmv library yardstick: no single call ({k3_lib_err})")
+    n_prod = 2 * len(NS_SCHEDULE) + 1
     calls = {
-        "bsr_spmv": (lambda: fused_bsr_spmv(lv0.A, x, "resid_scaled", b=b, s=lv0.dinv),
-                     lambda: fused_bsr_spmv_plain(lv0.A, x, "resid_scaled", b=b, s=lv0.dinv),
-                     f"resid_scaled, level-0 block Hessian {lv0.A.n_rows} rows, "
-                     f"{lv0.A.nnz} blocks"),
-        "ns_sign_apply": (lambda: ns_sign_apply(X), lambda: ns_sign_apply_plain(X),
-                          f"{X.shape[0]} blocks 9x9"),
+        "bsr_spmv": (lambda: fused_bsr_spmv(A0, x, "resid_scaled", b=b, s=lv0.dinv),
+                     lambda: fused_bsr_spmv_plain(A0, x, "resid_scaled", b=b, s=lv0.dinv),
+                     k3_lib,
+                     bound_ms(4 * (A0.n_rows + 1) + A0.nnz * (4 + 36) + 4 * 3 * A0.n_cols
+                              + 3 * 4 * 3 * A0.n_rows, 18 * A0.nnz),
+                     f"resid_scaled, level-0 block Hessian {A0.n_rows} rows, "
+                     f"{A0.nnz} blocks"),
+        "ns_sign_apply": (lambda: ns_sign_apply(X), lambda: ns_sign_apply_plain(X), None,
+                          bound_ms(2 * m * d * d * 4, m * n_prod * 2 * d ** 3),
+                          f"{m} blocks {d}x{d}"),
     }
     ker = {}
-    for name, (kern, plain, what) in calls.items():
-        res = {"kernel": [], "plain": [], "kernel_call": [], "plain_call": []}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            fn = kern if which == "kernel" else plain
-            res[which].append(device_ms(fn, 20)[0])
-            res[which + "_call"].append(cuda_ms(fn, 20))
+    for name, (kern, plain, lib, (bms, by), what) in calls.items():
+        fns = {"kernel": kern, "plain": plain}
+        turns = ["plain", "kernel", "kernel", "plain"]
+        if lib is not None:
+            fns["library"] = lib
+            turns = ["plain", "kernel", "library", "library", "kernel", "plain"]
+        res = {w: [] for w in fns}
+        res.update({w + "_call": [] for w in fns})
+        for which in turns:
+            res[which].append(device_ms(fns[which], 20)[0])
+            res[which + "_call"].append(cuda_ms(fns[which], 20))
         ker[name] = {k: float(np.median(v)) for k, v in res.items()}
-        log(f"phase 9: {name} (f32, {what}): device {res['kernel']} ms vs plain "
-            f"{res['plain']} ms; per call {res['kernel_call']} vs {res['plain_call']} ms")
+        ker[name].update(bound=bms, bound_by=by, library=ker[name].get("library"))
+        log(f"phase 9: {name} (f32, {what}): bound {1e3 * bms:.3f} us ({by}); device "
+            f"{res['kernel']} ms vs plain {res['plain']} ms, library {res.get('library')} ms; "
+            f"per call {res['kernel_call']} vs {res['plain_call']} ms")
     bal = {"step_ms": step_ms, "step_walls_ms": walls, "device_ms": busy,
            "device_ops": n_dev, "idle_share": idle, "phase_ms": tot, "newton": newton}
     return bal, ker
@@ -670,9 +858,13 @@ def main() -> int:
     path = _build.library_path()
     _build.load_library()
     log(f"phase 2: built {path.name} in {time.perf_counter() - t0:.2f} s")
-    for line in path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    report = path.with_suffix(".log").read_text().splitlines()
+    regs = [int(w.split()[0]) for line in report if "registers" in line
+            for w in line.split("Used ")[1:]]
+    spills = [line.strip() for line in report
+              if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    log(f"  ptxas: {len(regs)} kernels, at most {max(regs)} registers a thread; "
+        f"spills: {spills or 'none'}")
 
     V, F, mg, A, M, t_mg = ico_system(depth)
     log(f"host: ico{depth} |V| {V.shape[0]} |F| {F.shape[0]}, mg_precompute {t_mg:.2f} s, "
@@ -686,7 +878,7 @@ def main() -> int:
     from surface_multigrid_code_torch.utils.obj_io import read_obj
     from surface_multigrid_code_torch.utils.paths import mesh_path
 
-    errs = check_kernels(A, mg[1].P_full.tocsr(), dev)
+    errs = check_kernels(A, mg, dev)
     Vb, Fb = read_obj(mesh_path(BALLOON_MESH))
     t0 = time.perf_counter()
     mg_b = mg_precompute(Vb, Fb, verbose=False)
@@ -723,11 +915,26 @@ def main() -> int:
     # phases 4 and 5: the static solve and its other shapes, counted
     reset_counts()
     datas = main_path(depth, V, mg, A, M, dev)
-    other_shapes(depth, V, A, M, datas[SmootherType.MULTICOLOR_GS], dev)
+    ogre = other_shapes(depth, V, A, M, datas[SmootherType.MULTICOLOR_GS], dev)
     static = read_counts("phases 4-5", ("spmv_fused", "spmv_fused_planes"))
+    hub = max((lv.PT for lv in ogre.hier.levels[1:]), key=lambda S: int(S.indptr.diff().max()))
+    n_hub = check_spmv(host_csr(hub), "ogre constrained PT (hub rows)", dev, errs,
+                       np.random.default_rng(3))
+    log(f"phase 3: K1/K2 {n_hub} kernel-vs-plain cases agree on the ogre PT with rows of "
+        f"{int(hub.indptr.diff().max())} (lanes {run_lanes(hub, hub.n_rows)}); "
+        f"max abs err {errs}")
 
     # phase 6: timing
-    vc, ker = timings(depth, V, A, M, datas, dev)
+    vc = timings(depth, V, M, datas, dev)
+    shapes = spmv_shapes(spmv_cases(datas[SmootherType.MULTICOLOR_GS].hier, ogre.hier, dev), dev)
+    ker = {}
+    for rec in shapes:
+        if rec["shape"].startswith("A_0 axpby"):
+            ker[kernel_name(rec["C"])] = {
+                "kernel": rec["kernel_ms"], "plain": rec["plain_ms"],
+                "kernel_call": rec["kernel_call_ms"], "plain_call": rec["plain_call_ms"],
+                "bound": rec["bound_ms"], "bound_by": rec["bound_by"],
+                "library": rec["library_ms"]}
 
     # phase 7: the balloon path, counted
     reset_counts()
@@ -744,17 +951,22 @@ def main() -> int:
     ker.update(bker)
 
     log(card)
+    log(json.dumps({"spmv_shapes": shapes, "mesh": f"icosphere({depth})", "dtype": "float32"}))
     log(json.dumps({"vcycle": vc, "mesh": f"icosphere({depth})", "dtype": "float32"}))
     log(json.dumps({"balloon": {**bsum, **bal}, "mesh": BALLOON_MESH, "dtype": "float32",
                     "launches": balloon}))
-    # ms / plain_ms: device time per call (profiler); call_ms / plain_call_ms:
-    # per call between CUDA events over back-to-back calls, host included;
-    # launches: phases 4-5 and 7 together
-    sources = {**{n: (SOURCE, rep) for n, (_, rep) in KERNELS.items()}, **BLOCK_KERNELS}
+    # ms / plain_ms / library_ms: device time per call (profiler), at ico7
+    # level-0 A (K1, K2), the bunny_15K level-0 block Hessian (K3) and its
+    # 31,604 face blocks (K4); call_ms / plain_call_ms: per call between CUDA
+    # events over back-to-back calls, host included; bound_ms: from this
+    # run's shapes at the H100's peaks; launches: phases 4-5 and 7 together
+    sources = {**{n: (SOURCE, rep) for n, rep in KERNELS.items()}, **BLOCK_KERNELS}
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],
          "ms": ker[name]["kernel"], "plain_ms": ker[name]["plain"],
+         "bound_ms": ker[name]["bound"], "bound_by": ker[name]["bound_by"],
+         "library_ms": ker[name]["library"],
          "call_ms": ker[name]["kernel_call"], "plain_call_ms": ker[name]["plain_call"]}
         for name, (src, rep) in sources.items()
     ]}))

@@ -35,9 +35,9 @@ _LIB = None
 _p = ctypes.c_void_p
 _i = ctypes.c_int
 _d = ctypes.c_double
-# indptr, indices, data, x, y, u, b, s, escale, rows, n, [C,] epi, stream
-_K1_ARGS = [_p, _p, _p, _p, _p, _p, _p, _p, _d, _p, _i, _i, _p]
-_K2_ARGS = [_p, _p, _p, _p, _p, _p, _p, _p, _d, _p, _i, _i, _i, _p]
+# indptr, indices, data, x, y, u, b, s, escale, rows, n, [C,] lanes, epi, stream
+_K1_ARGS = [_p, _p, _p, _p, _p, _p, _p, _p, _d, _p, _i, _i, _i, _p]
+_K2_ARGS = [_p, _p, _p, _p, _p, _p, _p, _p, _d, _p, _i, _i, _i, _i, _p]
 # indptr, indices, blocks, x, y, u, b, s, escale, n, epi, stream
 _K3_ARGS = [_p, _p, _p, _p, _p, _p, _p, _p, _d, _i, _i, _p]
 # X, Y, m, d, schedule (host double [2 * steps]), steps, stream
@@ -47,6 +47,7 @@ SIGNATURES = {
     "smg_spmv_fused_f64": _K1_ARGS,
     "smg_spmv_fused_planes_f32": _K2_ARGS,
     "smg_spmv_fused_planes_f64": _K2_ARGS,
+    "smg_card_threads": [_i],
     "smg_bsr_spmv_f32": _K3_ARGS,
     "smg_bsr_spmv_f64": _K3_ARGS,
     "smg_ns_sign_apply_f32": _K4_ARGS,

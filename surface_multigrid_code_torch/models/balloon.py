@@ -44,6 +44,7 @@ from surface_multigrid_code_torch.solver.bsr import BsrRefreshableSolver, bsr_so
 from surface_multigrid_code_torch.solver.galerkin import _ellize_segments
 from surface_multigrid_code_torch.solver.hierarchy import extend_hierarchy, mg_precompute
 from surface_multigrid_code_torch.solver.refresh import csr_slot_map
+from surface_multigrid_code_torch.utils.device import resolve_device
 
 PHASES = ("assembly", "psd", "refresh", "vcycles", "line_search")
 
@@ -391,7 +392,7 @@ def run_balloon(
     solver: str = "bsr",
     n_newton: int = 10,
     verbose: bool = True,
-    device="cpu",
+    device="cuda",
     dtype: torch.dtype | None = None,
     coarsest_nv: int | None = None,
     stats: list | None = None,
@@ -411,6 +412,7 @@ def run_balloon(
             "MCF (ROADMAP queue 1 item 6)")
     if solver != "bsr":
         raise ValueError(f"unknown solver {solver!r} (want 'bsr'|'scalar')")
+    device = resolve_device(device)
     V = np.asarray(V, dtype=np.float64)
     F = np.asarray(F, dtype=np.int64)
     alpha, beta = lame_parameters(young, poisson)

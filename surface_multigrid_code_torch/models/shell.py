@@ -39,6 +39,7 @@ import torch
 from torch.func import grad, hessian, vmap
 
 from surface_multigrid_code_torch.ops.psd import NS_SCHEDULE, ns_sign_apply
+from surface_multigrid_code_torch.utils.device import resolve_device
 
 MATERIALS = ("neohookean", "stvk", "tension_field")
 
@@ -322,10 +323,10 @@ class ShellEnergy:
     """
 
     def __init__(self, V_rest, F, thickness, alpha, beta,
-                 material="neohookean", bending=False, device="cpu"):
+                 material="neohookean", bending=False, device="cuda"):
         if material not in MATERIALS:
             raise ValueError(f"unknown material {material!r} (want one of {MATERIALS})")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.F = np.asarray(F, dtype=np.int64)
         self.n = int(np.asarray(V_rest).shape[0])
         self.thickness = float(thickness)

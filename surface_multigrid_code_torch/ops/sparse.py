@@ -14,6 +14,17 @@ import torch
 from torch import nn
 
 
+def row_lanes(nnz: int, n_rows: int) -> int:
+    """Lanes of the sub-warp that computes one row in the CUDA SpMV kernel
+    (``csrc/spmv.cu``): the smallest power of two at or above the mean row
+    length ``nnz / n_rows``, at most 32 (a warp). A launch too large for
+    one wave of the card uses fewer (``ops.spmv.launch_lanes``)."""
+    lanes = 1
+    while lanes < 32 and lanes * max(n_rows, 1) < nnz:
+        lanes *= 2
+    return lanes
+
+
 class CSRMatrix(nn.Module):
     """CSR sparse matrix on a device.
 
@@ -21,6 +32,8 @@ class CSRMatrix(nn.Module):
     indices: int32 [nnz] column ids
     data:    float [nnz] values (stored zeros are kept)
     n_cols:  int
+    lanes:   int, the kernel's lanes per row (``row_lanes``), read from
+             the shapes when the matrix is built, so a call needs no sync
     """
 
     def __init__(self, indptr: torch.Tensor, indices: torch.Tensor,
@@ -30,6 +43,7 @@ class CSRMatrix(nn.Module):
         self.register_buffer("indices", indices)
         self.register_buffer("data", data)
         self.n_cols = int(n_cols)
+        self.lanes = row_lanes(indices.shape[0], indptr.shape[0] - 1)
 
     @property
     def n_rows(self) -> int:
@@ -40,7 +54,8 @@ class CSRMatrix(nn.Module):
         return (self.n_rows, self.n_cols)
 
     def extra_repr(self) -> str:
-        return f"shape={self.shape}, nnz={self.data.shape[0]}, dtype={self.data.dtype}"
+        return (f"shape={self.shape}, nnz={self.data.shape[0]}, dtype={self.data.dtype}, "
+                f"lanes={self.lanes}")
 
 
 def csr_from_scipy(A: sp.spmatrix, device, dtype=torch.float32) -> CSRMatrix:

@@ -16,7 +16,10 @@ only those rows are computed and written, in place, into ``out``: the
 multicolor Gauss-Seidel update.
 
 A CUDA tensor goes to the hand-written kernel of ``csrc/spmv.cu`` (K1 for
-one column, K2 for C columns); a CPU tensor goes to ``fused_spmv_plain``,
+one column, K2 for C columns), which computes each row with a sub-warp of
+``launch_lanes(A.lanes, rows launched, card_threads)`` lanes: the
+operator's lanes (``ops.sparse.row_lanes``), fewer where the launch would
+not fit the card in one wave. A CPU tensor goes to ``fused_spmv_plain``,
 the plain PyTorch version of the same function. There is no other route.
 The TPU's ``acc`` chaining over slot groups (``well_apply``) is a layout
 artifact and has no counterpart.
@@ -24,16 +27,38 @@ artifact and has no counterpart.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from surface_multigrid_code_torch._build import load_library
 from surface_multigrid_code_torch.ops.sparse import CSRMatrix, csr_spmv
 
+_LANES = (1, 2, 4, 8, 16, 32)
 _EPI_CODE = {None: 0, "axpby": 1, "resid": 2, "add": 3, "resid_scaled": 4}
 _EPI_OPERANDS = {
     None: (), "axpby": ("u", "b", "s"), "resid": ("b",), "add": ("u",),
     "resid_scaled": ("b", "s"),
 }
+
+
+def launch_lanes(lanes: int, n_out: int, card_threads: int) -> int:
+    """Sub-warp width of one launch: the operator's ``lanes``, halved while
+    the launched rows times lanes exceed the threads the card holds at once.
+    A launch that fits in one wave keeps a lane per nonzero; a larger one
+    has each lane walk several nonzeros instead of queueing more waves."""
+    while lanes > 1 and n_out * lanes > card_threads:
+        lanes //= 2
+    return lanes
+
+
+@functools.lru_cache(maxsize=None)
+def card_threads(index: int) -> int:
+    """Threads CUDA device ``index`` holds at once (SMs x threads per SM)."""
+    n = load_library().smg_card_threads(index)
+    if n <= 0:
+        raise RuntimeError(f"could not read the size of CUDA device {index}")
+    return n
 
 
 def _epilogue(Ax, epi, b, u, s, escale):
@@ -100,6 +125,8 @@ def _check(A: CSRMatrix, x, epi, b, u, s, rows, out):
         t = getattr(A, name)
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise TypeError(f"operator {name} must be contiguous int32 on {dev}")
+    if A.lanes not in _LANES:
+        raise ValueError(f"operator lanes {A.lanes} is not one of {_LANES}")
     if rows is not None:
         if out is None:
             raise ValueError("a row subset is written in place: pass out=")
@@ -131,6 +158,7 @@ def fused_spmv(A: CSRMatrix, x: torch.Tensor, epi: str | None = None,
     suffix = "f32" if x.dtype == torch.float32 else "f64"
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
+        lanes = launch_lanes(A.lanes, n_out, card_threads(torch.cuda.current_device()))
         args = (
             A.indptr.data_ptr(), A.indices.data_ptr(), A.data.data_ptr(),
             x.data_ptr(), out.data_ptr(), ptr(u), ptr(b), ptr(s),
@@ -138,10 +166,10 @@ def fused_spmv(A: CSRMatrix, x: torch.Tensor, epi: str | None = None,
         )
         if x.ndim == 1:
             err = getattr(lib, f"smg_spmv_fused_{suffix}")(
-                *args, _EPI_CODE[epi], stream)
+                *args, lanes, _EPI_CODE[epi], stream)
         else:
             err = getattr(lib, f"smg_spmv_fused_planes_{suffix}")(
-                *args, x.shape[1], _EPI_CODE[epi], stream)
+                *args, x.shape[1], lanes, _EPI_CODE[epi], stream)
             fused_spmv.planes_launches += 1
     fused_spmv.launches += 1
     if err != 0:

@@ -50,6 +50,7 @@ from surface_multigrid_code_torch.solver.galerkin import (
     build_galerkin_plan,
     plan_pattern,
 )
+from surface_multigrid_code_torch.utils.device import resolve_device
 
 # The coarse correction coarse_inv @ b is a plain dense matmul; TF32 would
 # round its inputs to a 10-bit mantissa. Keep full-precision f32 products.
@@ -257,12 +258,12 @@ class BsrRefreshableSolver:
 
     def __init__(self, mg, pattern_v: sp.spmatrix,
                  cfg: SolveConfig | None = None, dtype=torch.float32,
-                 coarsest_shift: float = 1e-12, device="cpu"):
+                 coarsest_shift: float = 1e-12, device="cuda"):
         self.cfg = cfg or SolveConfig(smoother=SmootherType.CHEBYSHEV)
         if self.cfg.smoother not in (SmootherType.CHEBYSHEV, SmootherType.JACOBI):
             raise ValueError("the BSR path takes pointwise smoothers (Chebyshev, Jacobi)")
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.coarsest_shift = float(coarsest_shift)
         Av = pattern_v.tocsr().copy()
         Av.sum_duplicates()

@@ -37,6 +37,7 @@ from surface_multigrid_code_torch.solver.vcycle import (
     solve_loop,
     solve_loop_ir,
 )
+from surface_multigrid_code_torch.utils.device import resolve_device
 
 
 @dataclass
@@ -68,11 +69,13 @@ def min_quad_with_fixed_mg_precompute(
     mg: list[MGLevel],
     cfg: SolveConfig = SolveConfig(),
     *,
-    device,
+    device="cuda",
     dtype: torch.dtype = torch.float32,
     colorings: list[np.ndarray] | None = None,
 ) -> MQWFData:
-    """Precompute solver data on ``device``. `known=None` or empty = unconstrained overload."""
+    """Precompute solver data on ``device`` (the card unless the caller
+    passes ``device="cpu"``). `known=None` or empty = unconstrained overload."""
+    device = resolve_device(device)
     A = A.tocsr().astype(np.float64)
     n = A.shape[0]
     if (abs(A - A.T) > 1e-10 * max(1.0, abs(A).max())).nnz != 0:
@@ -148,7 +151,7 @@ def min_quad_with_fixed_mg_precompute(
 
     return MQWFData(
         n=n, known=known, unknown=unknown, LHS=LHS, Auk=Auk, hier=hier,
-        cfg=cfg, dtype=dtype, device=torch.device(device),
+        cfg=cfg, dtype=dtype, device=device,
         colorings=colorings, A64=A64,
     )
 

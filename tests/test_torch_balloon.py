@@ -48,7 +48,7 @@ def test_bsr_balloon_step_matches_jax(bending):
     V, F, al, be, M, fExt = _setup()
     jshell = JShell(V, F, 0.1, al, be, "neohookean", bending=bending)
     tshell = shell_state_from_jax(
-        ShellEnergy(V, F, 0.1, al, be, "neohookean", bending=bending),
+        ShellEnergy(V, F, 0.1, al, be, "neohookean", bending=bending, device="cpu"),
         np.asarray(jshell.abars), None if not bending else np.asarray(jshell.bbars))
     jstep = jb.BsrBalloonStepper(
         jshell, M, jmg_precompute(V, F, min_coarsest_nv=40, verbose=False), DT,
@@ -75,7 +75,7 @@ def test_frozen_state_guard_keeps_qdot_bitwise():
     """A direction that fails every line-search trial leaves qdot bitwise
     unchanged and is counted, with a warning."""
     V, F, al, be, M, fExt = _setup()
-    shell = ShellEnergy(V, F, 0.1, al, be, "neohookean")
+    shell = ShellEnergy(V, F, 0.1, al, be, "neohookean", device="cpu")
     step = tb.BsrBalloonStepper(
         shell, M, mg_precompute(V, F, min_coarsest_nv=40, verbose=False), DT,
         n_newton=2, coarsest_nv=0)
@@ -100,7 +100,7 @@ def test_frozen_state_guard_keeps_qdot_bitwise():
 def test_run_balloon_defaults_and_scalar_solver():
     V, F = icosphere(1)
     stats = []
-    out = list(tb.run_balloon(V, F, n_steps=2, n_newton=2, verbose=False,
+    out = list(tb.run_balloon(V, F, n_steps=2, n_newton=2, verbose=False, device="cpu",
                               mg=mg_precompute(V, F, min_coarsest_nv=10, verbose=False),
                               stats=stats))
     assert len(out) == len(stats) == 2
@@ -108,4 +108,14 @@ def test_run_balloon_defaults_and_scalar_solver():
     assert [s["last_rejected"] for s in stats] == [0, 0]
     assert np.abs(out[1] - V).max() > np.abs(out[0] - V).max() > 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        next(tb.run_balloon(V, F, solver="scalar", verbose=False))
+        next(tb.run_balloon(V, F, solver="scalar", verbose=False, device="cpu"))
+
+
+def test_run_balloon_default_device_is_the_card():
+    """Without a CUDA device, the default device raises at the first step;
+    there is no fallback to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device runs")
+    V, F = icosphere(1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        next(tb.run_balloon(V, F, verbose=False))

@@ -151,7 +151,7 @@ def balloon_pair():
     al, be = lame_parameters(6e6, 0.5)
     M = 1000.0 * tb.lumped_mass_matrix(V, F)
     jshell = JShell(V, F, 0.1, al, be, "neohookean")
-    tshell = shell_state_from_jax(ShellEnergy(V, F, 0.1, al, be, "neohookean"),
+    tshell = shell_state_from_jax(ShellEnergy(V, F, 0.1, al, be, "neohookean", device="cpu"),
                                   np.asarray(jshell.abars))
     mgj = jmg_precompute(V, F, min_coarsest_nv=10, verbose=False)
     mgt = mg_precompute(V, F, min_coarsest_nv=10, verbose=False)
@@ -198,7 +198,8 @@ def test_refresh_and_solve_loop_match_jax(balloon_pair, smoother):
         mgj, pattern, cfg=JSolveConfig(smoother=JSmoother(smoother)),
         dtype=jnp.float64, well=False)
     tsolver = tbsr.BsrRefreshableSolver(
-        mgt, pattern, cfg=SolveConfig(smoother=SmootherType(smoother)), dtype=torch.float64)
+        mgt, pattern, cfg=SolveConfig(smoother=SmootherType(smoother)), dtype=torch.float64,
+        device="cpu")
     hj = jsolver._refresh_impl(jsolver._state, jnp.asarray(vals))
     ht = tsolver.refresh(torch.as_tensor(vals))
     assert ht.n_levels == hj.n_levels >= 3

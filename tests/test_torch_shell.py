@@ -46,7 +46,7 @@ def mesh():
 def _pair(V, F, material, bending):
     al, be = lame_parameters(6e4, 0.3)
     j = JShell(V, F, 0.1, al, be, material, bending=bending)
-    t = ShellEnergy(V, F, 0.1, al, be, material, bending=bending)
+    t = ShellEnergy(V, F, 0.1, al, be, material, bending=bending, device="cpu")
     return j, t
 
 

@@ -6,14 +6,22 @@ PyTorch version on CPU tensors) and through the JAX package's windowed
 Pallas kernel (``well_apply``, interpret mode on CPU) and its ELL gather
 (``ell_spmv`` with the epilogue applied in numpy). All in f64: the sums
 differ only in order, so max|d| <= 1e-11 max|y|.
+
+The CUDA kernel's launch plan (``CSRMatrix.lanes``, the sub-warp width
+per row) is read from the shapes on the host, so it is tested here too.
 """
+
+import importlib
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 import jax.numpy as jnp
 
+from surface_multigrid_code_tpu.config import SmootherType as JSmoother
+from surface_multigrid_code_tpu.config import SolveConfig as JSolveConfig
 from surface_multigrid_code_tpu.ops import smoothers as jsm
 from surface_multigrid_code_tpu.ops.laplacian import cotmatrix, massmatrix
 from surface_multigrid_code_tpu.ops.sparse import ell_from_csr, ell_spmv
@@ -21,9 +29,13 @@ from surface_multigrid_code_tpu.ops.well import build_well_auto, well_apply
 from surface_multigrid_code_tpu.solver.hierarchy import mg_precompute
 from surface_multigrid_code_tpu.utils.synthetic import icosphere
 
+from surface_multigrid_code_torch.convert import ell_to_csr, hierarchy_from_jax
 from surface_multigrid_code_torch.ops import smoothers as tsm
 from surface_multigrid_code_torch.ops.sparse import csr_from_scipy
-from surface_multigrid_code_torch.ops.spmv import fused_spmv
+from surface_multigrid_code_torch.ops.spmv import fused_spmv, launch_lanes
+
+# the JAX package's solver/__init__ re-exports a function named vcycle
+jvc = importlib.import_module("surface_multigrid_code_tpu.solver.vcycle")
 
 torch.set_num_threads(1)
 
@@ -123,3 +135,74 @@ def test_multicolor_gs_rows_match_jax(ops, C):
     )
     assert got is ut  # updated in place
     _close(got.numpy(), ref)
+
+
+@pytest.fixture(scope="module")
+def converted(ops):
+    """The ico operators through the JAX package's device hierarchy and
+    ``hierarchy_from_jax``: {name: (scipy matrix, converted CSRMatrix)}."""
+    A0, P = ops["A"], ops["P"]
+    A1 = (P.T @ A0 @ P).tocsr()
+    jh = jvc.build_device_hierarchy([A0, A1], [P], cfg=JSolveConfig(smoother=JSmoother.JACOBI),
+                                    dtype=jnp.float64, well=False)
+    ell = (lambda E: (np.asarray(E.indices), np.asarray(E.data)))
+    leaves = [{"A": ell(lv.A), "P": None if lv.P is None else ell(lv.P),
+               "PT": None if lv.PT is None else ell(lv.PT), "diag": np.asarray(lv.diag),
+               "groups": [], "lam_max": None} for lv in jh.levels]
+    th = hierarchy_from_jax(leaves, np.asarray(jh.coarse_inv), device="cpu",
+                            dtype=torch.float64)
+    return {"A_0": (A0, th.levels[0].A), "A_1": (A1, th.levels[1].A),
+            "P": (P, th.levels[1].P), "PT": (ops["PT"], th.levels[1].PT)}
+
+
+def _rows_of(lengths, n_cols=400, seed=0):
+    """A CSR matrix with the given nonzeros per row, random nonzero values."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(len(lengths)), lengths)
+    cols = np.concatenate([rng.choice(n_cols, k, replace=False) for k in lengths])
+    return sp.csr_matrix((rng.uniform(0.5, 1.5, rows.size), (rows, cols)),
+                         shape=(len(lengths), n_cols))
+
+
+@pytest.mark.parametrize("name, lanes", [
+    ("A_0", 8), ("A_1", 32), ("P", 4), ("PT", 16),   # icosphere(3) levels 0-1
+    ("hub rows of 171", 32), ("mean exactly 4", 4), ("mean just above 4", 8),
+    ("half the rows empty", 8),
+])
+def test_launch_plan_lanes(converted, name, lanes):
+    """CSRMatrix.lanes: the smallest power of two in [1, 32] at or above the
+    mean row length, the same through csr_from_scipy and the converters."""
+    if name in converted:
+        S, conv = converted[name]
+    else:
+        S = _rows_of({"hub rows of 171": [171, 3, 171, 171],
+                      "mean exactly 4": [4, 2, 6, 4],
+                      "mean just above 4": [4, 2, 6, 5],
+                      "half the rows empty": [0, 10, 0, 10, 0, 10]}[name])
+        E = ell_from_csr(S)
+        conv = ell_to_csr(np.asarray(E.indices), np.asarray(E.data), S.shape[1], "cpu",
+                          torch.float64)
+    mean = S.nnz / S.shape[0]
+    got = csr_from_scipy(S, "cpu", torch.float64).lanes
+    assert got == conv.lanes == lanes
+    assert lanes in (1, 2, 4, 8, 16, 32)
+    assert lanes >= mean or lanes == 32
+    assert lanes == 1 or lanes / 2 < mean
+
+
+H100_THREADS = 132 * 2048  # SMs x resident threads per SM
+
+
+@pytest.mark.parametrize("lanes, n_out, launched", [
+    (8, 163842, 1), (4, 163842, 1),            # ico7 A_0, P_1: one thread per row
+    (32, 40962, 4), (16, 40962, 4), (8, 40962, 4),  # A_1, PT_1, a level-0 GS color
+    (32, 10242, 16), (32, 2562, 32), (32, 4330, 32),  # A_2, A_3, a level-1 color
+    (16, 4932, 16), (1, 5, 1), (32, 1, 32),    # ogre's hub PT, tiny launches
+])
+def test_launch_lanes_fit_one_wave(lanes, n_out, launched):
+    """A launch keeps the operator's lanes unless rows x lanes exceed the
+    card's resident threads; then it halves them, never below 1."""
+    got = launch_lanes(lanes, n_out, H100_THREADS)
+    assert got == launched
+    assert got == 1 or n_out * got <= H100_THREADS
+    assert got == lanes or n_out * 2 * got > H100_THREADS
