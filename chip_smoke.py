@@ -105,21 +105,34 @@ def ico_system(depth: int):
 
 # ---------------------------------------------------------------- phase 3
 
-def spmv_operators(A, mg):
-    """The ico system's operators at every level (A_l the Galerkin
-    products, P_l and PT_l), and A_0 with every fifth row emptied."""
+def empty_every_fifth(S):
+    """S with every fifth row emptied (rows 0, 5, 10, ... store no nonzero)."""
     import scipy.sparse as sp
 
+    keep = (np.arange(S.shape[0]) % 5 != 0).astype(np.float64)
+    E = (sp.diags(keep) @ S).tocsr()
+    E.eliminate_zeros()
+    return E
+
+
+def spmv_operators(A, mg):
+    """The ico system's operators at every level (A_l the Galerkin
+    products, P_l and PT_l); A_0 with every fifth row emptied (launched one
+    thread per row); and the last smoothed level cut to an odd row count,
+    alone and with every fifth row emptied (launched 32 lanes per row, and
+    in check_kernels at every width). Returns (operators, label of the odd cut)."""
     ops, Al = {"A_0": A}, A
     for l in range(1, len(mg)):
         P = mg[l].P_full.tocsr()
         Al = (P.T @ Al @ P).tocsr()
         ops.update({f"A_{l}": Al, f"P_{l}": P, f"PT_{l}": P.T.tocsr()})
-    keep = (np.arange(A.shape[0]) % 5 != 0).astype(np.float64)
-    E = (sp.diags(keep) @ A).tocsr()
-    E.eliminate_zeros()
-    ops["A_0 with empty rows"] = E
-    return ops
+    ops["A_0 with empty rows"] = empty_every_fifth(A)
+    small = ops[f"A_{len(mg) - 2}"]
+    k = small.shape[0] - 1 + small.shape[0] % 2
+    odd = f"A_{len(mg) - 2}[:{k}]"
+    ops[odd] = small[:k].tocsr()
+    ops[f"{odd} with empty rows"] = empty_every_fifth(ops[odd])
+    return ops, odd
 
 
 def check_spmv(S, label, dev, errs, rng, Cs=(1, 2, 3, 4, 5), epis=EPIS, rows=None,
@@ -147,42 +160,39 @@ def check_spmv(S, label, dev, errs, rng, Cs=(1, 2, 3, 4, 5), epis=EPIS, rows=Non
             x = t(rng.standard_normal((m,) if C == 1 else (m, C)))
             u, b = t(rng.standard_normal(shp)), t(rng.standard_normal(shp))
             n_out = n if rows is None else len(rows)
-            what = f"{label} ({n_out} rows, lanes {run_lanes(Sd, n_out)}) C={C} {dt}"
+            what = f"{label} ({n_out} rows) C={C} {dt}"
             if r is not None:
                 uk, up = u.clone(), u.clone()
                 fused_spmv(Sd, uk, epi="axpby", u=uk, b=b, s=s, rows=r, out=uk)
                 fused_spmv_plain(Sd, up, epi="axpby", u=up, b=b, s=s, rows=r, out=up)
-                _compare(uk, up, dt, f"{what} in place", errs, kernel_name(C))
+                _compare(uk, up, dt, f"{what} in place, lanes {fused_spmv.last_lanes}",
+                         errs, kernel_name(C))
                 n_cases += 1
-                continue
-            for epi in epis:
+            for epi in epis if r is None else ():
                 kw = dict(epi=epi, b=b, u=u, s=s, escale=2.0 / 3.0)
                 _compare(fused_spmv(Sd, x, **kw), fused_spmv_plain(Sd, x, **kw), dt,
-                         f"{what} epi={epi}", errs, kernel_name(C))
+                         f"{what} epi={epi}, lanes {fused_spmv.last_lanes}", errs,
+                         kernel_name(C))
                 n_cases += 1
+            if lanes is not None and dev.type == "cuda" and fused_spmv.last_lanes != lanes:
+                raise RuntimeError(f"{what}: launched at {fused_spmv.last_lanes} lanes, "
+                                   f"not the forced {lanes}")
     return n_cases
-
-
-def run_lanes(S, n_out):
-    """The sub-warp width fused_spmv launches S with over n_out rows (None on the CPU)."""
-    from surface_multigrid_code_torch.ops.spmv import card_threads, launch_lanes
-
-    if S.data.device.type != "cuda":
-        return None
-    return launch_lanes(S.lanes, n_out, card_threads(S.data.device.index or 0))
 
 
 def check_kernels(A, mg, dev, seed=0):
     """Phase 3 (K1/K2), kernel vs plain version on the same device inputs:
     every epilogue, C in 1..5, f32 and f64, on A_l, P_l and PT_l of every
-    ico level and on an operator with empty rows; the largest GS color of
-    every smoothed level, in place; the last smoothed level and a color of
-    it at every forced lanes value. Returns {kernel name: max abs error}."""
+    ico level and on operators with empty rows; the largest GS color of
+    every smoothed level, in place; at every forced lanes value, the last
+    smoothed level cut to an odd row count (alone and with empty rows) and
+    a color of it of odd size, so that every width up to 16 runs a ragged
+    last warp. Returns {kernel name: max abs error}."""
     from surface_multigrid_code_torch.ops.smoothers import color_groups, greedy_coloring
     from surface_multigrid_code_torch.ops.spmv import fused_spmv
 
     rng = np.random.default_rng(seed)
-    ops = spmv_operators(A, mg)
+    ops, odd = spmv_operators(A, mg)
     errs = {name: 0.0 for name in KERNELS}
     before = fused_spmv.launches
     n_cases = 0
@@ -194,11 +204,14 @@ def check_kernels(A, mg, dev, seed=0):
         colors[l] = max(color_groups(greedy_coloring(S)), key=len)
         n_cases += check_spmv(S, f"A_{l} largest GS color", dev, errs, rng, rows=colors[l])
     small = len(mg) - 2  # the last smoothed level (A_3 at ico7) takes any width
+    color = colors[small][: len(colors[small]) - 1 + len(colors[small]) % 2]
     for lanes in (1, 2, 4, 8, 16, 32):
-        n_cases += check_spmv(ops[f"A_{small}"], f"A_{small} forced", dev, errs, rng,
+        n_cases += check_spmv(ops[odd], f"{odd} forced", dev, errs, rng,
                               Cs=(1, 3, 5), epis=(None, "axpby"), lanes=lanes)
-        n_cases += check_spmv(ops[f"A_{small}"], f"A_{small} largest GS color forced", dev,
-                              errs, rng, Cs=(1, 3), rows=colors[small], lanes=lanes)
+        n_cases += check_spmv(ops[f"{odd} with empty rows"], f"{odd} with empty rows forced",
+                              dev, errs, rng, Cs=(1, 3), epis=(None, "axpby"), lanes=lanes)
+        n_cases += check_spmv(ops[f"A_{small}"], f"A_{small} GS color forced", dev,
+                              errs, rng, Cs=(1, 3), rows=color, lanes=lanes)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         if fused_spmv.launches <= before:
@@ -284,16 +297,15 @@ def main_path(depth, V, mg, A, M, dev):
     return datas
 
 
-def other_shapes(depth, V, A, M, gs_data, dev):
-    """Phase 5: constrained ogre (ex03), [n, 3] right-hand side, ex04 with
-    refinement. Returns the ogre's solver data (its PT has the hub rows)."""
+def ogre_system(dev):
+    """ex03 shape: ogre, boundary known (zero), A = -L, B = M 1 with B(b) = 0.
+    Returns (solver data, A, known, B); its PT has the hub rows."""
     from surface_multigrid_code_torch import mg_precompute, min_quad_with_fixed_mg_precompute
     from surface_multigrid_code_torch.ops.laplacian import cotmatrix, massmatrix
     from surface_multigrid_code_torch.utils.mesh import boundary_vertices, normalize_unit_area
     from surface_multigrid_code_torch.utils.obj_io import read_obj
     from surface_multigrid_code_torch.utils.paths import mesh_path
 
-    # ex03 shape: ogre, boundary known (zero), A = -L, B = M 1 with B(b) = 0
     Vo, Fo = read_obj(mesh_path("ogre"))
     Vo = normalize_unit_area(Vo, Fo)
     mg_o = mg_precompute(Vo, Fo, verbose=False)
@@ -301,10 +313,22 @@ def other_shapes(depth, V, A, M, gs_data, dev):
     bo = boundary_vertices(Fo)
     Bo = np.asarray(massmatrix(Vo, Fo) @ np.ones(Vo.shape[0]))
     Bo[bo] = 0.0
-    data_o = min_quad_with_fixed_mg_precompute(Ao, bo, mg_o, device=dev)
+    return min_quad_with_fixed_mg_precompute(Ao, bo, mg_o, device=dev), Ao, bo, Bo
+
+
+def other_shapes(depth, V, A, M, gs_data, dev):
+    """Phase 5: constrained ogre (ex03), [n, 3] right-hand side, ex04 with
+    refinement. Returns the ogre's solver data (its PT has the hub rows)."""
+    from surface_multigrid_code_torch import mg_precompute, min_quad_with_fixed_mg_precompute
+    from surface_multigrid_code_torch.ops.laplacian import cotmatrix, massmatrix
+    from surface_multigrid_code_torch.utils.mesh import normalize_unit_area
+    from surface_multigrid_code_torch.utils.obj_io import read_obj
+    from surface_multigrid_code_torch.utils.paths import mesh_path
+
+    data_o, Ao, bo, Bo = ogre_system(dev)
     hub = max(int(np.diff(lv.PT.indptr.cpu().numpy()).max())
               for lv in data_o.hier.levels[1:])
-    log(f"phase 5: ogre |V| {Vo.shape[0]}, {bo.size} known, widest PT row {hub}")
+    log(f"phase 5: ogre |V| {Ao.shape[0]}, {bo.size} known, widest PT row {hub}")
     solve_checked(data_o, Bo, "phase 5: ogre constrained f32", 1e-3, A_host=Ao,
                   known=bo, known_val=np.zeros(bo.size))
 
@@ -479,6 +503,27 @@ def spmv_cases(gs_hier, ogre_hier, dev):
     return cases
 
 
+def shape_inputs(k, case, dev):
+    """Seeded inputs of spmv_cases()[k] = case: (the operator as a host CSR,
+    x, the fused_spmv keywords, the host row ids or None). With a row
+    subset the update is in place: x, u and out are one buffer."""
+    _, S, C, epi, rows, s = case
+    n, m = S.shape
+    g = torch.Generator(device=dev).manual_seed(100 + k)
+
+    def rnd(r):
+        return torch.randn((r,) if C == 1 else (r, C), device=dev, generator=g)
+
+    x, u, b = rnd(m), rnd(n), rnd(n)
+    if s is None:
+        s = torch.rand(n, device=dev, generator=g) + 0.5
+    kw = dict(epi=epi, u=u, b=b, s=s, escale=2.0 / 3.0)
+    if rows is None:
+        return host_csr(S), x, kw, None
+    kw.update(rows=rows, out=u)
+    return host_csr(S), u, kw, rows.cpu().numpy()
+
+
 def spmv_shapes(cases, dev, reps=20):
     """Phase 6: K1/K2 at every shape of the static path. Per shape: device
     time (profiler) and per-call time (events) of the kernel and of one
@@ -489,29 +534,17 @@ def spmv_shapes(cases, dev, reps=20):
     from surface_multigrid_code_torch.ops.spmv import fused_spmv, fused_spmv_plain
 
     out = []
-    for k, (label, S, C, epi, rows, s) in enumerate(cases):
-        H = host_csr(S)
-        n, m = S.shape
-        g = torch.Generator(device=dev).manual_seed(100 + k)
-
-        def rnd(r):
-            return torch.randn((r,) if C == 1 else (r, C), device=dev, generator=g)
-
-        x, u, b = rnd(m), rnd(n), rnd(n)
-        if s is None:
-            s = torch.rand(n, device=dev, generator=g) + 0.5
-        kw = dict(epi=epi, u=u, b=b, s=s, escale=2.0 / 3.0)
-        host_rows = None
-        if rows is not None:
-            x = u
-            kw.update(u=x, rows=rows, out=x)
-            host_rows = rows.cpu().numpy()
+    for k, case in enumerate(cases):
+        label, S, C, epi, rows, _ = case
+        H, x, kw, host_rows = shape_inputs(k, case, dev)
         L = H if rows is None else H[host_rows]
         lib_A = torch.sparse_csr_tensor(
             torch.as_tensor(L.indptr, dtype=torch.int32, device=dev),
             torch.as_tensor(L.indices, dtype=torch.int32, device=dev),
             torch.as_tensor(L.data, dtype=torch.float32, device=dev), size=L.shape)
         fns = {"kernel": lambda: fused_spmv(S, x, **kw), "library": lambda: lib_A @ x}
+        fns["kernel"]()
+        lanes = fused_spmv.last_lanes
         turns = ["kernel", "library", "library", "kernel"]
         if label.startswith("A_0 axpby"):
             fns["plain"] = lambda: fused_spmv_plain(S, x, **kw)
@@ -525,7 +558,7 @@ def spmv_shapes(cases, dev, reps=20):
         bms, by = bound_ms(nbytes, flops)
         rec = {"shape": label, "C": C, "rows": int(L.shape[0]), "nnz": int(L.nnz),
                "max_row": int(np.diff(L.indptr).max()) if L.shape[0] else 0,
-               "row_lanes": S.lanes, "lanes": run_lanes(S, int(L.shape[0])),
+               "row_lanes": S.lanes, "lanes": lanes,
                "bytes": int(nbytes),
                "bound_ms": bms, "bound_by": by}
         for w in fns:
@@ -810,8 +843,10 @@ def balloon_timings(V, F, mg, positions, stats, dev):
                               + 3 * 4 * 3 * A0.n_rows, 18 * A0.nnz),
                      f"resid_scaled, level-0 block Hessian {A0.n_rows} rows, "
                      f"{A0.nnz} blocks"),
+        # every iterate is a polynomial in the symmetric block, so each of
+        # the n_prod products is symmetric: d(d+1)/2 entries of d MACs
         "ns_sign_apply": (lambda: ns_sign_apply(X), lambda: ns_sign_apply_plain(X), None,
-                          bound_ms(2 * m * d * d * 4, m * n_prod * 2 * d ** 3),
+                          bound_ms(2 * m * d * d * 4, m * n_prod * d * d * (d + 1)),
                           f"{m} blocks {d}x{d}"),
     }
     ker = {}
@@ -921,7 +956,7 @@ def main() -> int:
     n_hub = check_spmv(host_csr(hub), "ogre constrained PT (hub rows)", dev, errs,
                        np.random.default_rng(3))
     log(f"phase 3: K1/K2 {n_hub} kernel-vs-plain cases agree on the ogre PT with rows of "
-        f"{int(hub.indptr.diff().max())} (lanes {run_lanes(hub, hub.n_rows)}); "
+        f"{int(hub.indptr.diff().max())} (lanes {fused_spmv.last_lanes}); "
         f"max abs err {errs}")
 
     # phase 6: timing
@@ -955,11 +990,12 @@ def main() -> int:
     log(json.dumps({"vcycle": vc, "mesh": f"icosphere({depth})", "dtype": "float32"}))
     log(json.dumps({"balloon": {**bsum, **bal}, "mesh": BALLOON_MESH, "dtype": "float32",
                     "launches": balloon}))
-    # ms / plain_ms / library_ms: device time per call (profiler), at ico7
-    # level-0 A (K1, K2), the bunny_15K level-0 block Hessian (K3) and its
-    # 31,604 face blocks (K4); call_ms / plain_call_ms: per call between CUDA
-    # events over back-to-back calls, host included; bound_ms: from this
-    # run's shapes at the H100's peaks; launches: phases 4-5 and 7 together
+    # ms / plain_ms / library_ms: device time per call (profiler, L2 warm:
+    # back-to-back calls on inputs that fit in L2), at ico7 level-0 A (K1,
+    # K2), the bunny_15K level-0 block Hessian (K3) and its 31,604 face
+    # blocks (K4); call_ms / plain_call_ms: per call between CUDA events over
+    # back-to-back calls, host included; bound_ms: from this run's shapes at
+    # the H100's HBM and f32 peaks; launches: phases 4-5 and 7 together
     sources = {**{n: (SOURCE, rep) for n, rep in KERNELS.items()}, **BLOCK_KERNELS}
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

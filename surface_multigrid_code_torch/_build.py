@@ -47,7 +47,6 @@ SIGNATURES = {
     "smg_spmv_fused_f64": _K1_ARGS,
     "smg_spmv_fused_planes_f32": _K2_ARGS,
     "smg_spmv_fused_planes_f64": _K2_ARGS,
-    "smg_card_threads": [_i],
     "smg_bsr_spmv_f32": _K3_ARGS,
     "smg_bsr_spmv_f64": _K3_ARGS,
     "smg_ns_sign_apply_f32": _K4_ARGS,

@@ -31,13 +31,17 @@
 // CB <= kMaxCols columns per pass over the row), and the row's first lane
 // applies the epilogue and stores. Summation is therefore a tree per row,
 // not CSR order as in the plain PyTorch version; the two differ by
-// rounding only.
+// rounding only. L is a template parameter: with L a runtime value (shifts
+// for the stride, the rows per CTA and the shuffle width) the kernel took
+// 2-12% longer at 15 of the 17 L > 1 shapes of the static path, and at
+// L = 1 this body runs as fast as a plain one-thread-per-row loop
+// (spmv_ab.py, H100).
 //
 // L is chosen on the host, from shapes only: per operator the smallest
 // power of two at or above the mean row length, at most 32
 // (ops/sparse.row_lanes), then per launch halved while the launched rows
-// times L exceed the threads the card holds at once (ops/spmv.launch_lanes,
-// from smg_card_threads). Without that cap a large operator gets about one
+// times L exceed the threads the card holds at once (ops/spmv.launch_lanes).
+// Without that cap a large operator gets about one
 // lane per nonzero: ico7's level-0 A at L = 8 is 1.3M threads, five waves
 // of the card, each wave a chain of dependent loads (indptr, indices, x),
 // and took 7.1 us where one thread per row took 4.0 (H100). Capped, the
@@ -62,10 +66,13 @@
 // the x gathers and the row's vectors: 2 FLOP per 8-12 B, far below the
 // ~20 FLOP/B at which the card's CUDA cores, let alone its tensor cores,
 // would limit. The gathers are irregular, so TMA tiles and wgmma do not
-// apply, and no tensor core is used. ico7's level-0 A moves 13.1 MB (3.9
-// us at 3.35 TB/s) and is bandwidth-bound; a Galerkin level or a GS color
-// moves 0.04-7 MB, under the ~2 us launch floor, and is latency-bound:
-// what this design attacks is the chain of dependent loads per row.
+// apply, and no tensor core is used. ico7's level-0 A moves 13.1 MB, 3.9
+// us at the 3.35 TB/s of HBM; the whole ico7 hierarchy fits in the 50 MB
+// L2, so on the V-cycle those bytes come from L2 and HBM is not the limit
+// the kernel meets (with the L2 flushed before each call it takes 7.1 us,
+// spmv_ab.py, H100). A Galerkin level or a GS color moves 0.04-7 MB,
+// under the ~2 us launch floor, and is latency-bound: what this design
+// attacks is the chain of dependent loads per row.
 //
 // Entry points have a plain C interface (loaded with ctypes) and return
 // cudaGetLastError() of the launch; they launch on the given stream,
@@ -201,16 +208,6 @@ int spmv_fused(const Args<T>& a, int lanes, int epi, void* stream_ptr) {
 }
 
 }  // namespace
-
-// Threads the card holds at once: SMs times resident threads per SM, or -1.
-extern "C" int smg_card_threads(int device) {
-  int sms = 0, per_sm = 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxThreadsPerMultiProcessor, device) !=
-          cudaSuccess)
-    return -1;
-  return sms * per_sm;
-}
 
 // K1: one column. `lanes` is the launch's sub-warp width (1..32, a power of two).
 extern "C" int smg_spmv_fused_f32(const int* indptr, const int* indices, const float* data,

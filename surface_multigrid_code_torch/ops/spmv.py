@@ -55,10 +55,8 @@ def launch_lanes(lanes: int, n_out: int, card_threads: int) -> int:
 @functools.lru_cache(maxsize=None)
 def card_threads(index: int) -> int:
     """Threads CUDA device ``index`` holds at once (SMs x threads per SM)."""
-    n = load_library().smg_card_threads(index)
-    if n <= 0:
-        raise RuntimeError(f"could not read the size of CUDA device {index}")
-    return n
+    p = torch.cuda.get_device_properties(index)
+    return p.multi_processor_count * p.max_threads_per_multi_processor
 
 
 def _epilogue(Ax, epi, b, u, s, escale):
@@ -142,6 +140,7 @@ def fused_spmv(A: CSRMatrix, x: torch.Tensor, epi: str | None = None,
     Returns ``out`` when given (and always with ``rows``), else a new tensor.
     Each kernel launch adds one to ``fused_spmv.launches``; launches of the
     multi-column kernel (K2) also add one to ``fused_spmv.planes_launches``.
+    ``fused_spmv.last_lanes`` is the sub-warp width of the last launch.
     """
     if x.device.type == "cpu":
         return fused_spmv_plain(A, x, epi, b, u, s, escale, rows, out)
@@ -172,6 +171,7 @@ def fused_spmv(A: CSRMatrix, x: torch.Tensor, epi: str | None = None,
                 *args, x.shape[1], lanes, _EPI_CODE[epi], stream)
             fused_spmv.planes_launches += 1
     fused_spmv.launches += 1
+    fused_spmv.last_lanes = lanes
     if err != 0:
         raise RuntimeError(f"spmv_fused launch failed: cudaError {err}")
     return out
@@ -179,3 +179,4 @@ def fused_spmv(A: CSRMatrix, x: torch.Tensor, epi: str | None = None,
 
 fused_spmv.launches = 0
 fused_spmv.planes_launches = 0
+fused_spmv.last_lanes = None
