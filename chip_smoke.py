@@ -65,9 +65,11 @@ ORACLE_GAP = (0.1, 0.05, 0.05)
 # tighter tolerances are the refinement path's, run in phase 5.
 REL_TOL = 1e-4
 # Peaks of one H100 SXM (NVIDIA's data sheet) for the bounds: HBM3 bytes
-# per second, and float32 operations per second outside the tensor cores.
+# per second, and float32 and float64 operations per second outside the
+# tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+F64_FLOPS_PER_S = 34e12
 
 
 def log(msg: str) -> None:
@@ -388,23 +390,35 @@ def cuda_ms(fn, reps, warmup=3):
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, reps):
-    """Per-call device time of fn: the summed durations of the kernels and
-    copies the profiler records over reps calls, and their count per call."""
+def device_ms(fn, reps, kernel=None):
+    """Per-call device time of fn from the profiler, and the device events
+    recorded per call. Without ``kernel``: the summed durations of the
+    kernels and copies recorded over reps calls, over reps. With
+    ``kernel`` (a substring of the name of the one kernel a call of fn
+    launches): the mean duration of the recorded launches of that kernel.
+    The profiler was seen to drop some events of a session (17 of 20
+    launches, every session of one call) and to carry events of one
+    session over into the next, so a sum over reps undercounts where the
+    mean of a named kernel does not."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a short session now and then records no device event
+    for attempt in range(8):  # a session now and then records no device event
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and (kernel is None or kernel in e.name)]
         if ev:
-            return sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3, len(ev) / reps
-    raise RuntimeError("the profiler recorded no device activity in 3 sessions")
+            total = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+            return (total / reps if kernel is None else total / len(ev)), len(ev) / reps
+        log(f"  profiler session {attempt} recorded no device event"
+            + ("" if kernel is None else f" named {kernel}") + "; again")
+        time.sleep(1.0)
+    raise RuntimeError("the profiler recorded no device event in 8 sessions")
 
 
 def in_turns(run, plain_ctx):
@@ -454,10 +468,11 @@ def host_csr(S):
                           S.indptr.cpu().numpy()), shape=S.shape)
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, f64=False):
     """The least time the card could take: bytes over the HBM rate or
-    operations over the f32 CUDA-core peak, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    operations over the CUDA cores' f32 (or f64) peak, whichever is larger."""
+    peak = F64_FLOPS_PER_S if f64 else F32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -549,11 +564,7 @@ def spmv_shapes(cases, dev, reps=20):
         if label.startswith("A_0 axpby"):
             fns["plain"] = lambda: fused_spmv_plain(S, x, **kw)
             turns = ["plain", *turns, "plain"]
-        dev_ms = {w: [] for w in fns}
-        call_ms = {w: [] for w in fns}
-        for w in turns:
-            dev_ms[w].append(device_ms(fns[w], reps)[0])
-            call_ms[w].append(cuda_ms(fns[w], reps))
+        dev_ms, call_ms = timed_turns(fns, turns, reps, {"kernel": "spmv_fused_kernel"})
         nbytes, flops = spmv_bytes(H, C, epi, host_rows)
         bms, by = bound_ms(nbytes, flops)
         rec = {"shape": label, "C": C, "rows": int(L.shape[0]), "nnz": int(L.nnz),
@@ -608,38 +619,81 @@ def block_hessian(stepper, pos, dev):
     return stepper._assemble(H)
 
 
-def check_block_kernels(V, F, mg, dev, seed=1):
-    """Phase 3 (K3): every epilogue in f32 and f64 on the bunny_15K level-0
-    block Hessian at the rest pose and on its second Galerkin level, kernel
-    against plain version. Returns {"bsr_spmv": max abs error}."""
-    from surface_multigrid_code_torch.models.balloon import BsrBalloonStepper
+def bsr_subset(A, n, empty_fifth=False):
+    """The first n block rows of the BSRMatrix A; with empty_fifth, rows 0,
+    5, 10, ... keep no block. Columns are kept."""
+    from surface_multigrid_code_torch.ops.sparse import BSRMatrix
+
+    indptr = A.indptr.cpu().numpy().astype(np.int64)
+    counts = np.diff(indptr[: n + 1])
+    keep_row = np.ones(n, dtype=bool)
+    if empty_fifth:
+        keep_row[::5] = False
+    sel = np.flatnonzero(np.repeat(keep_row, counts))
+    new_ptr = np.concatenate([[0], np.cumsum(counts * keep_row)])
+    sel_t = torch.as_tensor(sel, device=A.indices.device)
+    return BSRMatrix(torch.as_tensor(new_ptr.astype(np.int32), device=A.indptr.device),
+                     A.indices[sel_t].contiguous(), A.blocks[sel_t].contiguous(), A.n_cols)
+
+
+def check_bsr(A, label, dev, errs, rng, lanes=None):
+    """K3 against the plain version on the block operator A (any dtype on
+    dev), f32 and f64, every epilogue; ``lanes`` forces the sub-warp width.
+    Returns (number of cases, the lanes launched)."""
     from surface_multigrid_code_torch.ops.bsr_spmv import fused_bsr_spmv, fused_bsr_spmv_plain
     from surface_multigrid_code_torch.ops.sparse import BSRMatrix
+
+    n, m = A.n_rows, A.n_cols
+    n_cases = 0
+    for dt in (torch.float32, torch.float64):
+        Ad = BSRMatrix(A.indptr, A.indices, A.blocks.to(dt).contiguous(), m)
+        if lanes is not None:
+            Ad.lanes = lanes
+        x = torch.as_tensor(rng.standard_normal((m, 3)), device=dev).to(dt)
+        u, b = (torch.as_tensor(rng.standard_normal((n, 3)), device=dev).to(dt)
+                for _ in range(2))
+        s = torch.as_tensor(rng.uniform(0.5, 2.0, (n, 3)), device=dev).to(dt)
+        for epi in EPIS:
+            kw = dict(b=b, u=u, s=s, escale=2.0 / 3.0)
+            y = fused_bsr_spmv(Ad, x, epi, **kw)
+            what = (f"bsr {label} ({n} rows, {Ad.nnz} blocks) epi={epi} {dt}, "
+                    f"lanes {fused_bsr_spmv.last_lanes}")
+            _compare(y, fused_bsr_spmv_plain(Ad, x, epi, **kw), dt, what, errs, "bsr_spmv")
+            if lanes is not None and dev.type == "cuda" and fused_bsr_spmv.last_lanes != lanes:
+                raise RuntimeError(f"{what}: not the forced {lanes} lanes")
+            n_cases += 1
+    return n_cases, fused_bsr_spmv.last_lanes
+
+
+def check_block_kernels(V, F, mg, dev, seed=1):
+    """Phase 3 (K3): kernel against plain version, every epilogue, f32 and
+    f64, on every level of the bunny_15K balloon hierarchy (the block
+    Hessian at the rest pose and its Galerkin levels); then at every
+    forced width the coarsest level cut to an odd number of rows, alone
+    and with every fifth row emptied, so that every width below 32 runs a
+    ragged last warp and empty rows. Returns {"bsr_spmv": max abs error}."""
+    from surface_multigrid_code_torch.models.balloon import BsrBalloonStepper
 
     shell, M = balloon_shell(V, F, dev)
     stepper = BsrBalloonStepper(shell, M, mg, balloon_defaults()["dt"], dtype=torch.float64)
     hier = stepper.solver.refresh(block_hessian(stepper, V, dev))
     rng = np.random.default_rng(seed)
-    errs, n_cases = {}, 0
-    for lv in (0, 2):
-        level = hier.levels[lv]
-        for dt in (torch.float32, torch.float64):
-            A = BSRMatrix(level.A.indptr, level.A.indices,
-                          level.A.blocks.to(dt).contiguous(), level.A.n_cols)
-            n = A.n_rows
-            x, u, b = (torch.as_tensor(rng.standard_normal((n, 3)), device=dev).to(dt)
-                       for _ in range(3))
-            s = level.dinv.to(dt).contiguous()
-            for epi in EPIS:
-                kw = dict(b=b, u=u, s=s, escale=2.0 / 3.0)
-                y = fused_bsr_spmv(A, x, epi, **kw)
-                ref = fused_bsr_spmv_plain(A, x, epi, **kw)
-                _compare(y, ref, dt, f"bsr level {lv} ({n} rows, {A.nnz} blocks) "
-                         f"epi={epi} {dt}", errs, "bsr_spmv")
-                n_cases += 1
+    errs, n_cases, widths = {}, 0, []
+    for lv, level in enumerate(hier.levels):
+        n, got = check_bsr(level.A, f"level {lv}", dev, errs, rng)
+        n_cases += n
+        widths.append(f"{level.A.n_rows} rows, {level.A.nnz} blocks: {level.A.lanes} -> {got}")
+    coarse = hier.levels[-1].A
+    k = coarse.n_rows - 1 + coarse.n_rows % 2
+    cuts = {f"coarsest[:{k}]": bsr_subset(coarse, k),
+            f"coarsest[:{k}] with empty rows": bsr_subset(coarse, k, empty_fifth=True)}
+    for lanes in (1, 2, 4, 8, 16, 32):
+        for label, A in cuts.items():
+            n_cases += check_bsr(A, f"{label} forced", dev, errs, rng, lanes=lanes)[0]
     torch.cuda.synchronize(dev)
-    log(f"phase 3: K3 {n_cases} kernel-vs-plain cases agree on bunny_15K levels 0 "
-        f"({hier.levels[0].A.n_rows} rows) and 2 ({hier.levels[2].A.n_rows} rows); "
+    log(f"phase 3: K3 {n_cases} kernel-vs-plain cases agree on all {hier.n_levels} bunny_15K "
+        f"levels (lanes operator -> launch: {widths}) and at 6 forced widths on the "
+        f"coarsest cut to {k} rows, alone and with every fifth row empty; "
         f"max abs err {errs['bsr_spmv']:.3e}")
     return errs
 
@@ -651,31 +705,100 @@ def scaled_blocks(H):
     return (Hs / s[:, None, None]).contiguous()
 
 
+# eigenvalues at the edges of the Newton-Schulz schedule's range, and the
+# largest distance from (1/2) Y to the exact f64 eigen-projection
+# U max(L, 0) U^T allowed there: f64, the schedule's residue (|sign - 1| <=
+# 5e-9 for |x| >= 1.5e-3) plus rounding; f32, rounding amplified by the
+# growth cubics (the plain version takes 1.1e-5 on the CPU).
+EDGE_EIGS = (-1.5e-3, 1.5e-3, -1e-2, 1e-2, 1.4)
+EDGE_DIST = {torch.float32: 1e-4, torch.float64: 1e-11}
+
+
+def edge_blocks(m, d, seed):
+    """m symmetric d x d blocks U diag(lam) U^T with every eigenvalue in
+    EDGE_EIGS (each block holds all of them), and their exact PSD parts."""
+    rng = np.random.default_rng(seed)
+    U, _ = np.linalg.qr(rng.standard_normal((m, d, d)))
+    lam = rng.choice(np.array(EDGE_EIGS), size=(m, d))
+    lam[:, :len(EDGE_EIGS)] = EDGE_EIGS
+    X = np.einsum("mij,mj,mkj->mik", U, lam, U)
+    P = np.einsum("mij,mj,mkj->mik", U, np.maximum(lam, 0.0), U)
+    return 0.5 * (X + X.transpose(0, 2, 1)), P
+
+
 def check_sign_kernel(V, F, pos, dev, seed=2):
-    """Phase 3 (K4), at the pressure-1e6 pose the balloon reached: the
-    31,604 real 9x9 face Hessians and random symmetric 18x18 blocks, f32 and
-    f64, kernel against plain version. Returns {"ns_sign_apply": max abs err}."""
+    """Phase 3 (K4), at the pressure-1e6 pose the balloon reached, f32 and
+    f64, kernel against plain version: the 31,604 real 9x9 face Hessians
+    (in both bodies at f32), the real 18x18 bending Hessians of the same
+    pose, random symmetric 18x18 blocks; and blocks with eigenvalues at the
+    schedule's edges, where the kernel's and the plain version's (1/2) Y
+    are each held against the exact f64 eigen-projection (least eigenvalue
+    and distance computed on the host: cuSOLVER's batched eigvalsh refuses
+    31,604 blocks), and the two against each other at TOL in f64 only.
+    Returns ({"ns_sign_apply": max abs err of the TOL-held cases},
+    {edge case: distances})."""
+    from surface_multigrid_code_torch.models.shell import ShellEnergy, lame_parameters
     from surface_multigrid_code_torch.ops.psd import ns_sign_apply, ns_sign_apply_plain
 
-    shell, _ = balloon_shell(V, F, dev)
+    d_ = balloon_defaults()
+    al, be = lame_parameters(d_["young"], d_["poisson"])
+    shell = ShellEnergy(V, F, d_["thickness"], al, be, d_["material"], bending=True, device=dev)
     rng = np.random.default_rng(seed)
     B = rng.standard_normal((4096, 18, 18))
-    errs, n_neg = {}, 0
+    edges = {d: edge_blocks(4096, d, seed + d) for d in (9, 18)}
+    errs, n_neg, n_cases, edge = {}, 0, 0, {}
     for dt in (torch.float32, torch.float64):
-        x9 = torch.as_tensor(np.asarray(pos)[F].reshape(-1, 9), device=dev).to(dt)
+        xv = torch.as_tensor(np.asarray(pos), device=dev).to(dt)
+        x9 = xv[shell.Ft].reshape(-1, 9)
+        opp, mask, bbars = shell.bend_state(dt)
+        x18 = torch.cat([x9, xv[opp].reshape(-1, 9)], dim=1)
         X9 = scaled_blocks(shell.face_hess(x9, shell.abars.to(dt)))
-        X18 = scaled_blocks(torch.as_tensor(B, device=dev).to(dt))
-        for X, what in ((X9, f"{X9.shape[0]} face Hessians 9x9"), (X18, "4096 random 18x18")):
-            Y = ns_sign_apply(X)
+        X18 = scaled_blocks(shell.face_hess_bend(x18, shell.abars.to(dt), bbars, mask))
+        # (blocks, forced body, what, exact PSD part for the edge sets)
+        cases = [(X9, None, f"{X9.shape[0]} face Hessians 9x9", None),
+                 (X18, None, f"{X18.shape[0]} bending Hessians 18x18", None),
+                 (scaled_blocks(torch.as_tensor(B, device=dev).to(dt)), None,
+                  "4096 random 18x18", None)]
+        if dt == torch.float32:
+            cases.append((X9, "shared", f"{X9.shape[0]} face Hessians 9x9, shared body", None))
+        for d, (E, P) in edges.items():
+            cases.append((torch.as_tensor(E, device=dev).to(dt).contiguous(), None,
+                          f"4096 {d}x{d} with eigenvalues at {EDGE_EIGS}", P))
+        for X, body, what, P in cases:
+            Y = ns_sign_apply(X, body=body)
             ref = ns_sign_apply_plain(X)
-            _compare(Y, ref, dt, f"K4 {what} {dt}", errs, "ns_sign_apply")
+            label = f"K4 {what} {dt} ({ns_sign_apply.last_body} body)"
+            if P is None or dt == torch.float64:
+                _compare(Y, ref, dt, label, errs, "ns_sign_apply")
+                n_cases += 1
+            if P is None:
+                continue
+            # the edge set: kernel and plain version each held against the
+            # exact projection; in f32 the two are not held to each other at
+            # TOL (the growth cubics amplify their different rounding at the
+            # schedule's edges), their distance is reported
+            rec = {"kernel_vs_plain": float((Y - ref).abs().max()),
+                   "max_abs_y": float(ref.abs().max())}
+            for who, Z in (("kernel", Y), ("plain", ref)):
+                half = 0.5 * Z.double().cpu().numpy()
+                least = float(np.linalg.eigvalsh(0.5 * (half + half.transpose(0, 2, 1))).min())
+                dist = float(np.abs(half - P).max())
+                rec[who] = {"least_eig": least, "distance": dist}
+                if not (dist <= EDGE_DIST[dt] and least >= -EDGE_DIST[dt]):
+                    raise RuntimeError(f"{label}: the {who} is {dist:.3e} off the eigen-projection "
+                                       f"(least eigenvalue {least:.3e}, limit {EDGE_DIST[dt]:g})")
+            edge[f"{X.shape[1]}x{X.shape[1]} {str(dt)[6:]}"] = rec
+            log(f"phase 3: {label}: max|kernel - plain| {rec['kernel_vs_plain']:.3e} "
+                f"(max|y| {rec['max_abs_y']:.3e}); least eigenvalue of Y/2 and max distance to "
+                f"the f64 eigen-projection: kernel {rec['kernel']}, plain {rec['plain']} "
+                f"(limit {EDGE_DIST[dt]:g})")
         # counted on the host: cuSOLVER's batched eigvalsh refuses 31,604 blocks
         n_neg = int((torch.linalg.eigvalsh(X9.double().cpu()).min(dim=1).values < -1e-4).sum())
     torch.cuda.synchronize(dev)
-    log(f"phase 3: K4 kernel-vs-plain agree on the step-{BALLOON_STEPS} pose "
-        f"({n_neg} of {F.shape[0]} scaled face blocks have an eigenvalue below -1e-4) "
-        f"and on random 18x18 blocks; max abs err {errs['ns_sign_apply']:.3e}")
-    return errs
+    log(f"phase 3: K4 {n_cases} kernel-vs-plain cases agree on the step-{BALLOON_STEPS} pose "
+        f"({n_neg} of {F.shape[0]} scaled face blocks have an eigenvalue below -1e-4), "
+        f"random 18x18 and edge-eigenvalue blocks; max abs err {errs['ns_sign_apply']:.3e}")
+    return errs, edge
 
 
 def balloon_path(V, F, mg, dev):
@@ -769,17 +892,13 @@ def balloon_oracle(V, F, positions, stats, dev):
 def balloon_timings(V, F, mg, positions, stats, dev):
     """Phase 9: ms per balloon step on bunny_15K (f32) from the last state,
     split per Newton iteration into its phases; the device idle share of a
-    step; K3 and K4 against their plain versions at the step's shapes."""
+    step; K3 and K4 at every shape of the step (bsr_shapes, sign_shapes).
+    Returns (balloon record, {kernel: main-shape times}, K3 records, K4
+    records)."""
     from surface_multigrid_code_torch.models.balloon import (
         PHASES,
         BsrBalloonStepper,
         inflation_force,
-    )
-    from surface_multigrid_code_torch.ops.bsr_spmv import fused_bsr_spmv, fused_bsr_spmv_plain
-    from surface_multigrid_code_torch.ops.psd import (
-        NS_SCHEDULE,
-        ns_sign_apply,
-        ns_sign_apply_plain,
     )
 
     d = balloon_defaults()
@@ -788,6 +907,21 @@ def balloon_timings(V, F, mg, positions, stats, dev):
                                 n_newton=d["n_newton"])
     cur, qd = positions[-1], stats[-1]["qdot"]
     fExt = inflation_force(cur, F, d["pressure"])
+
+    # the kernels at the step's shapes, timed before the step's profiler
+    # session of ~11K device events: sessions after it were seen to drop
+    # and carry over events
+    hier = stepper.solver.refresh(block_hessian(stepper, cur, dev))
+    x9 = torch.as_tensor(np.asarray(cur)[F].reshape(-1, 9), device=dev, dtype=stepper.dtype)
+    X = scaled_blocks(shell.face_hess(x9, stepper.abars))
+    shapes = bsr_shapes(hier, dev)
+    signs = sign_shapes(X, dev)
+    ker = {}
+    for name, rec in (("bsr_spmv", shapes[0]), ("ns_sign_apply", signs[0])):
+        ker[name] = {"kernel": rec["kernel_ms"], "plain": rec["plain_ms"],
+                     "kernel_call": rec["kernel_call_ms"], "plain_call": rec["plain_call_ms"],
+                     "bound": rec["bound_ms"], "bound_by": rec["bound_by"],
+                     "library": rec.get("library_ms")}
 
     def one_step():
         stepper.step(cur, qd, fExt)
@@ -814,64 +948,165 @@ def balloon_timings(V, F, mg, positions, stats, dev):
         f"(ms, timed run with a sync per phase) {tot}; residuals per Newton solve "
         f"{[r['residuals'] for r in newton]}; device busy {busy:.3f} ms over {n_dev:.0f} "
         f"device ops, idle share {idle:.4f}")
-
-    # the kernels at the step's shapes, in turns plain, kernel, kernel, plain
-    vals = block_hessian(stepper, cur, dev)
-    lv0 = stepper.solver.refresh(vals).levels[0]
-    g = torch.Generator(device=dev).manual_seed(5)
-    x, b = (torch.randn((lv0.A.n_rows, 3), device=dev, generator=g) for _ in range(2))
-    x9 = torch.as_tensor(np.asarray(cur)[F].reshape(-1, 9), device=dev, dtype=torch.float32)
-    X = scaled_blocks(shell.face_hess(x9, stepper.abars))
-    A0, m, d = lv0.A, X.shape[0], X.shape[1]
-    # one cuSPARSE bsrmv of the same product, where torch takes the layout
-    # on the card (a yardstick the port never calls)
-    try:
-        lib_A = torch.sparse_bsr_tensor(A0.indptr, A0.indices, A0.blocks,
-                                        size=(3 * A0.n_rows, 3 * A0.n_cols))
-        xf = x.reshape(-1)
-        (lib_A @ xf).sum().item()
-        k3_lib, k3_lib_err = (lambda: lib_A @ xf), None
-    except (RuntimeError, NotImplementedError) as e:
-        k3_lib, k3_lib_err = None, f"{type(e).__name__}: {e}".splitlines()[0]
-        log(f"phase 9: bsr_spmv library yardstick: no single call ({k3_lib_err})")
-    n_prod = 2 * len(NS_SCHEDULE) + 1
-    calls = {
-        "bsr_spmv": (lambda: fused_bsr_spmv(A0, x, "resid_scaled", b=b, s=lv0.dinv),
-                     lambda: fused_bsr_spmv_plain(A0, x, "resid_scaled", b=b, s=lv0.dinv),
-                     k3_lib,
-                     bound_ms(4 * (A0.n_rows + 1) + A0.nnz * (4 + 36) + 4 * 3 * A0.n_cols
-                              + 3 * 4 * 3 * A0.n_rows, 18 * A0.nnz),
-                     f"resid_scaled, level-0 block Hessian {A0.n_rows} rows, "
-                     f"{A0.nnz} blocks"),
-        # every iterate is a polynomial in the symmetric block, so each of
-        # the n_prod products is symmetric: d(d+1)/2 entries of d MACs
-        "ns_sign_apply": (lambda: ns_sign_apply(X), lambda: ns_sign_apply_plain(X), None,
-                          bound_ms(2 * m * d * d * 4, m * n_prod * d * d * (d + 1)),
-                          f"{m} blocks {d}x{d}"),
-    }
-    ker = {}
-    for name, (kern, plain, lib, (bms, by), what) in calls.items():
-        fns = {"kernel": kern, "plain": plain}
-        turns = ["plain", "kernel", "kernel", "plain"]
-        if lib is not None:
-            fns["library"] = lib
-            turns = ["plain", "kernel", "library", "library", "kernel", "plain"]
-        res = {w: [] for w in fns}
-        res.update({w + "_call": [] for w in fns})
-        for which in turns:
-            res[which].append(device_ms(fns[which], 20)[0])
-            res[which + "_call"].append(cuda_ms(fns[which], 20))
-        ker[name] = {k: float(np.median(v)) for k, v in res.items()}
-        ker[name].update(bound=bms, bound_by=by, library=ker[name].get("library"))
-        log(f"phase 9: {name} (f32, {what}): bound {1e3 * bms:.3f} us ({by}); device "
-            f"{res['kernel']} ms vs plain {res['plain']} ms, library {res.get('library')} ms; "
-            f"per call {res['kernel_call']} vs {res['plain_call']} ms")
     bal = {"step_ms": step_ms, "step_walls_ms": walls, "device_ms": busy,
            "device_ops": n_dev, "idle_share": idle, "phase_ms": tot, "newton": newton}
-    return bal, ker
+    return bal, ker, shapes, signs
+
+
+def bsr_bytes(A, epi, itemsize=4):
+    """Bytes one fused block SpMV must move, each input read once and each
+    output written once: indptr, the blocks' indices and values, the x rows
+    they gather, the epilogue operands ([n, 3] each) and y."""
+    n = A.n_rows
+    per = 3 * n * itemsize
+    cols = int(torch.unique(A.indices).numel())
+    nbytes = 4 * (n + 1) + A.nnz * (4 + 9 * itemsize) + 3 * cols * itemsize + per
+    nbytes += per * len({None: "", "axpby": "ubs", "resid": "b", "add": "u",
+                         "resid_scaled": "bs"}[epi])
+    return nbytes, 18 * A.nnz
+
+
+def timed_turns(fns, turns, reps, kernels):
+    """Device time (profiler) and per-call time (events) of each of fns,
+    one measurement of reps calls per entry of turns. ``kernels`` maps the
+    fns that launch one hand kernel a call to its name (device_ms times
+    them by that kernel's recorded launches). Returns ({name: [device ms
+    per turn]}, {name: [call ms per turn]})."""
+    dev_ms = {w: [] for w in fns}
+    call_ms = {w: [] for w in fns}
+    for w in turns:
+        dev_ms[w].append(device_ms(fns[w], reps, kernels.get(w))[0])
+        call_ms[w].append(cuda_ms(fns[w], reps))
+    return dev_ms, call_ms
+
+
+def bsr_shapes(hier, dev, reps=20):
+    """Phase 9: K3 at every shape of the balloon path, f32: every level K3
+    runs on (all but the dense coarsest) with each epilogue the path uses
+    (resid_scaled: Chebyshev; axpby: Jacobi; resid: the V-cycle's and the
+    solve loop's residual; None: the power iteration). Per shape: device
+    time (profiler) and per-call time (events) of the kernel and of one
+    cuSPARSE bsrmv of the same product (``torch.sparse_bsr_tensor @ x``,
+    without the epilogue; a yardstick the port never calls), in turns
+    kernel, library, library, kernel; the plain version too at level-0
+    resid_scaled, the first record. Returns one record per shape."""
+    from surface_multigrid_code_torch.ops.bsr_spmv import fused_bsr_spmv, fused_bsr_spmv_plain
+
+    out = []
+    g = torch.Generator(device=dev).manual_seed(5)
+    for lv, level in enumerate(hier.levels[:-1]):
+        A = level.A
+        x = torch.randn((A.n_cols, 3), device=dev, generator=g, dtype=A.blocks.dtype)
+        u, b = (torch.randn((A.n_rows, 3), device=dev, generator=g, dtype=A.blocks.dtype)
+                for _ in range(2))
+        lib_A = torch.sparse_bsr_tensor(A.indptr, A.indices, A.blocks,
+                                        size=(3 * A.n_rows, 3 * A.n_cols))
+        xf = x.reshape(-1)
+        for epi in ("resid_scaled", "axpby", "resid", None):
+            kw = dict(b=b, u=u, s=level.dinv, escale=2.0 / 3.0)
+            fns = {"kernel": lambda: fused_bsr_spmv(A, x, epi, **kw),
+                   "library": lambda: lib_A @ xf}
+            fns["kernel"]()
+            lanes = fused_bsr_spmv.last_lanes
+            turns = ["kernel", "library", "library", "kernel"]
+            if not out:
+                fns["plain"] = lambda: fused_bsr_spmv_plain(A, x, epi, **kw)
+                turns = ["plain", *turns, "plain"]
+            dev_ms, call_ms = timed_turns(fns, turns, reps, {"kernel": "bsr_spmv_kernel"})
+            nbytes, flops = bsr_bytes(A, epi)
+            bms, by = bound_ms(nbytes, flops)
+            counts = A.indptr.diff()
+            rec = {"shape": f"level {lv} {epi}", "level": lv, "epi": epi,
+                   "rows": A.n_rows, "blocks": A.nnz, "max_row": int(counts.max()),
+                   "row_lanes": A.lanes, "lanes": lanes, "bytes": int(nbytes),
+                   "bound_ms": bms, "bound_by": by,
+                   "kernel_turns_ms": dev_ms["kernel"], "library_turns_ms": dev_ms["library"]}
+            for w in fns:
+                rec[f"{w}_ms"] = float(np.median(dev_ms[w]))
+                rec[f"{w}_call_ms"] = float(np.median(call_ms[w]))
+            out.append(rec)
+            log(f"phase 9: bsr_spmv level {lv} {epi}: {A.n_rows} rows, {A.nnz} blocks (max row "
+                f"{rec['max_row']}), lanes {lanes} of {A.lanes}; bound {1e3 * bms:.3f} us "
+                f"({nbytes} B); device kernel {[1e3 * t for t in dev_ms['kernel']]} us, "
+                f"cuSPARSE bsrmv {[1e3 * t for t in dev_ms['library']]} us"
+                + (f", plain {[1e3 * t for t in dev_ms['plain']]} us" if "plain" in fns else "")
+                + f"; per call kernel {1e3 * rec['kernel_call_ms']:.2f} us, cuSPARSE "
+                f"{1e3 * rec['library_call_ms']:.2f} us")
+    return out
+
+
+def sign_shapes(X9, dev, reps=20):
+    """Phase 9: K4 at each (d, dtype) it runs in, on as many blocks as the
+    step has faces: 9x9 f32 (the balloon's face Hessians at the step's
+    pose) in the register body, and in the shared-memory body that ran
+    there before; 9x9 f64 and 18x18 (random symmetric) f32 and f64 in the
+    shared-memory body. Device time (profiler) and per-call time (events)
+    in two interleaved turns, the plain version beside the first (9x9 f32)
+    before and after them. Returns one record per case, that one first."""
+    from surface_multigrid_code_torch.ops.psd import NS_SCHEDULE, ns_sign_apply, ns_sign_apply_plain
+
+    m = X9.shape[0]
+    g = torch.Generator(device=dev).manual_seed(6)
+    R = scaled_blocks(torch.randn((m, 18, 18), device=dev, generator=g, dtype=torch.float64))
+    cases = {"9x9 float32": (X9, None), "9x9 float32 shared body": (X9, "shared"),
+             "9x9 float64": (X9.double(), None), "18x18 float32": (R.float(), None),
+             "18x18 float64": (R, None)}
+    fns = {k: (lambda X=X, body=body: ns_sign_apply(X, body=body))
+           for k, (X, body) in cases.items()}
+    fns["plain"] = lambda: ns_sign_apply_plain(X9)
+    first = next(iter(cases))
+    turns = ["plain", *cases, *cases, "plain"]
+    dev_ms, call_ms = timed_turns(fns, turns, reps, dict.fromkeys(cases, "ns_sign_apply"))
+    out = []
+    for k, (X, body) in cases.items():
+        ns_sign_apply(X, body=body)
+        d, isz = X.shape[1], X.element_size()
+        # every iterate is a polynomial in the symmetric block, so each of
+        # the 2 * steps + 1 products is symmetric: d(d+1)/2 entries of d MACs
+        flops = m * (2 * len(NS_SCHEDULE) + 1) * d * d * (d + 1)
+        bms, by = bound_ms(2 * m * d * d * isz, flops, f64=isz == 8)
+        rec = {"shape": k, "blocks": m, "d": d, "body": ns_sign_apply.last_body,
+               "bytes": 2 * m * d * d * isz, "flops": flops, "bound_ms": bms, "bound_by": by,
+               "kernel_turns_ms": dev_ms[k], "kernel_ms": float(np.median(dev_ms[k])),
+               "kernel_call_ms": float(np.median(call_ms[k])), "library_ms": None}
+        if k == first:
+            rec.update(plain_ms=float(np.median(dev_ms["plain"])),
+                       plain_call_ms=float(np.median(call_ms["plain"])))
+        out.append(rec)
+        log(f"phase 9: ns_sign_apply {k} ({m} blocks, {rec['body']} body): bound "
+            f"{1e3 * bms:.3f} us ({by}); device {[1e3 * t for t in dev_ms[k]]} us"
+            + (f", plain {[1e3 * t for t in dev_ms['plain']]} us" if k == first else "")
+            + f"; per call {1e3 * rec['kernel_call_ms']:.2f} us")
+    return out
 
 
 # ---------------------------------------------------------------- main
+
+def ptxas_functions(report):
+    """Per kernel of the build's ``-Xptxas -v`` report (lines): {mangled
+    name: {"registers", "spill_stores", "spill_loads", "stack"}} in bytes."""
+    import re
+
+    out, name = {}, None
+    for line in report:
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
 
 def main() -> int:
     depth = 7
@@ -900,6 +1135,10 @@ def main() -> int:
               if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
     log(f"  ptxas: {len(regs)} kernels, at most {max(regs)} registers a thread; "
         f"spills: {spills or 'none'}")
+    sign_regs = {name: rep for name, rep in ptxas_functions(report).items()
+                 if "ns_sign_apply" in name}
+    for name, rep in sign_regs.items():
+        log(f"  ptxas {name}: {rep}")
 
     V, F, mg, A, M, t_mg = ico_system(depth)
     log(f"host: ico{depth} |V| {V.shape[0]} |F| {F.shape[0]}, mg_precompute {t_mg:.2f} s, "
@@ -976,13 +1215,14 @@ def main() -> int:
     positions, stats, bsum = balloon_path(Vb, Fb, mg_b, dev)
     balloon = read_counts("phase 7", ("spmv_fused_planes", "bsr_spmv", "ns_sign_apply"))
     launches = {name: static[name] + balloon[name] for name in counters}
-    errs.update(check_sign_kernel(Vb, Fb, positions[-1], dev))
+    k4_errs, edge = check_sign_kernel(Vb, Fb, positions[-1], dev)
+    errs.update(k4_errs)
 
     # phase 8: the balloon against the direct f64 oracle
     bsum["oracle_gap"] = balloon_oracle(Vb, Fb, positions, stats, dev)
 
     # phase 9: balloon and K3/K4 timing
-    bal, bker = balloon_timings(Vb, Fb, mg_b, positions, stats, dev)
+    bal, bker, bshapes, signs = balloon_timings(Vb, Fb, mg_b, positions, stats, dev)
     ker.update(bker)
 
     log(card)
@@ -990,6 +1230,9 @@ def main() -> int:
     log(json.dumps({"vcycle": vc, "mesh": f"icosphere({depth})", "dtype": "float32"}))
     log(json.dumps({"balloon": {**bsum, **bal}, "mesh": BALLOON_MESH, "dtype": "float32",
                     "launches": balloon}))
+    log(json.dumps({"bsr_shapes": bshapes, "mesh": BALLOON_MESH, "dtype": "float32"}))
+    log(json.dumps({"sign_shapes": signs, "mesh": BALLOON_MESH, "ptxas": sign_regs,
+                    "edge_eigs": {"eigenvalues": EDGE_EIGS, "least_eig_and_distance": edge}}))
     # ms / plain_ms / library_ms: device time per call (profiler, L2 warm:
     # back-to-back calls on inputs that fit in L2), at ico7 level-0 A (K1,
     # K2), the bunny_15K level-0 block Hessian (K3) and its 31,604 face

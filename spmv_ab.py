@@ -90,14 +90,16 @@ def caller(lib, takes_lanes, S, x, kw, lanes):
 
 
 def kernel_ms(fn, reps, before=None):
-    """Device time per call of fn's kernels (events named spmv), from the
-    profiler; ``before`` runs ahead of every call and is not counted."""
+    """Device time per call of fn's kernel (one launch a call, named spmv):
+    the mean duration of its launches the profiler recorded (it now and
+    then drops some); ``before`` runs ahead of every call and is not
+    counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a short session now and then records no device event
+    for _ in range(8):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 if before is not None:
@@ -107,8 +109,8 @@ def kernel_ms(fn, reps, before=None):
         ev = [e for e in prof.events()
               if e.device_type == DeviceType.CUDA and "spmv" in e.name]
         if ev:
-            return sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3
-    raise RuntimeError("the profiler recorded no kernel in 3 sessions")
+            return sum(e.time_range.elapsed_us() for e in ev) / len(ev) / 1e3
+    raise RuntimeError("the profiler recorded no kernel in 8 sessions")
 
 
 def main() -> int:

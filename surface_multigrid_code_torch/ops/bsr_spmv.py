@@ -14,9 +14,13 @@ for a ``BSRMatrix`` A (3x3 blocks on a vertex graph) and ``x`` of shape
 scale is per component (``_EPI_KINDS_B3``, ``ops/well.py:727-730``), the
 inverse of the block diagonal's three scalar entries.
 
-A CUDA tensor goes to the hand-written kernel K3 of ``csrc/bsr_spmv.cu``;
-a CPU tensor goes to ``fused_bsr_spmv_plain``, the plain PyTorch version
-of the same function. There is no other route.
+A CUDA tensor goes to the hand-written kernel K3 of ``csrc/bsr_spmv.cu``,
+which computes each block row with a sub-warp of
+``launch_lanes(A.lanes, A.n_rows, card_threads)`` lanes: the operator's
+lanes (``ops.sparse.row_lanes`` of its blocks per row), fewer where the
+launch would not fit the card in one wave. A CPU tensor goes to
+``fused_bsr_spmv_plain``, the plain PyTorch version of the same function.
+There is no other route.
 """
 
 from __future__ import annotations
@@ -25,7 +29,14 @@ import torch
 
 from surface_multigrid_code_torch._build import load_library
 from surface_multigrid_code_torch.ops.sparse import BSRMatrix, bsr_spmv
-from surface_multigrid_code_torch.ops.spmv import _EPI_CODE, _EPI_OPERANDS, _epilogue
+from surface_multigrid_code_torch.ops.spmv import (
+    _EPI_CODE,
+    _EPI_OPERANDS,
+    _LANES,
+    _epilogue,
+    card_threads,
+    launch_lanes,
+)
 
 
 def fused_bsr_spmv_plain(A: BSRMatrix, x, epi=None, b=None, u=None, s=None,
@@ -66,6 +77,8 @@ def _check(A: BSRMatrix, x, epi, b, u, s):
         t = getattr(A, name)
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise TypeError(f"operator {name} must be contiguous int32 on {dev}")
+    if A.lanes not in _LANES:
+        raise ValueError(f"operator lanes {A.lanes} is not one of {_LANES}")
 
 
 def fused_bsr_spmv(A: BSRMatrix, x: torch.Tensor, epi: str | None = None,
@@ -73,7 +86,8 @@ def fused_bsr_spmv(A: BSRMatrix, x: torch.Tensor, epi: str | None = None,
     """y = epi(A @ x) on [n, 3] states; see the module docstring.
 
     Returns a new tensor. Each kernel launch adds one to
-    ``fused_bsr_spmv.launches``.
+    ``fused_bsr_spmv.launches``; ``fused_bsr_spmv.last_lanes`` is the
+    sub-warp width of the last launch.
     """
     if x.device.type == "cpu":
         return fused_bsr_spmv_plain(A, x, epi, b, u, s, escale)
@@ -87,16 +101,19 @@ def fused_bsr_spmv(A: BSRMatrix, x: torch.Tensor, epi: str | None = None,
     ptr = (lambda t: None if t is None else t.data_ptr())
     fn = lib.smg_bsr_spmv_f32 if x.dtype == torch.float32 else lib.smg_bsr_spmv_f64
     with torch.cuda.device(x.device):
+        lanes = launch_lanes(A.lanes, A.n_rows, card_threads(torch.cuda.current_device()))
         err = fn(
             A.indptr.data_ptr(), A.indices.data_ptr(), A.blocks.data_ptr(),
             x.data_ptr(), out.data_ptr(), ptr(u), ptr(b), ptr(s),
-            float(escale), A.n_rows, _EPI_CODE[epi],
+            float(escale), A.n_rows, lanes, _EPI_CODE[epi],
             torch.cuda.current_stream().cuda_stream,
         )
     fused_bsr_spmv.launches += 1
+    fused_bsr_spmv.last_lanes = lanes
     if err != 0:
         raise RuntimeError(f"bsr_spmv launch failed: cudaError {err}")
     return out
 
 
 fused_bsr_spmv.launches = 0
+fused_bsr_spmv.last_lanes = None

@@ -15,10 +15,11 @@ from torch import nn
 
 
 def row_lanes(nnz: int, n_rows: int) -> int:
-    """Lanes of the sub-warp that computes one row in the CUDA SpMV kernel
-    (``csrc/spmv.cu``): the smallest power of two at or above the mean row
-    length ``nnz / n_rows``, at most 32 (a warp). A launch too large for
-    one wave of the card uses fewer (``ops.spmv.launch_lanes``)."""
+    """Lanes of the sub-warp that computes one row in the CUDA SpMV kernels
+    (``csrc/spmv.cu`` over nonzeros, ``csrc/bsr_spmv.cu`` over 3x3 blocks):
+    the smallest power of two at or above the mean row length
+    ``nnz / n_rows``, at most 32 (a warp). A launch too large for one wave
+    of the card uses fewer (``ops.spmv.launch_lanes``)."""
     lanes = 1
     while lanes < 32 and lanes * max(n_rows, 1) < nnz:
         lanes *= 2
@@ -96,6 +97,9 @@ class BSRMatrix(nn.Module):
     indices: int32 [nnz] block-column ids
     blocks:  float [nnz, 3, 3], 9 contiguous row-major values per block
     n_cols:  int (block columns)
+    lanes:   int, the kernel's lanes per block row (``row_lanes`` of the
+             blocks per row), read from the shapes when the matrix is
+             built, so a call needs no sync
 
     The counterpart of the JAX package's ELL ``BSRMatrix``
     (``solver/bsr.py:41``) without its padding slots.
@@ -108,6 +112,7 @@ class BSRMatrix(nn.Module):
         self.register_buffer("indices", indices)
         self.register_buffer("blocks", blocks)
         self.n_cols = int(n_cols)
+        self.lanes = row_lanes(indices.shape[0], indptr.shape[0] - 1)
 
     @property
     def n_rows(self) -> int:
@@ -118,7 +123,8 @@ class BSRMatrix(nn.Module):
         return self.indices.shape[0]
 
     def extra_repr(self) -> str:
-        return f"blocks={self.n_rows}x{self.n_cols}, nnz={self.nnz}, dtype={self.blocks.dtype}"
+        return (f"blocks={self.n_rows}x{self.n_cols}, nnz={self.nnz}, dtype={self.blocks.dtype}, "
+                f"lanes={self.lanes}")
 
 
 def row_ids(indptr: torch.Tensor, nnz: int) -> torch.Tensor:

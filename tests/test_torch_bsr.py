@@ -10,6 +10,10 @@
   refreshed operators, the Chebyshev bounds, the coarse inverse and the
   residual histories.
 - ``bsr_hierarchy_from_jax``: both V-cycles on identical operators.
+
+The CUDA kernel's launch plan (``BSRMatrix.lanes``, the sub-warp width
+per block row, capped per launch by ``launch_lanes``) is read from the
+shapes on the host, so it is tested here too.
 """
 
 import numpy as np
@@ -38,7 +42,8 @@ from surface_multigrid_code_torch.convert import bsr_hierarchy_from_jax, shell_s
 from surface_multigrid_code_torch.models import balloon as tb
 from surface_multigrid_code_torch.models.shell import ShellEnergy, lame_parameters
 from surface_multigrid_code_torch.ops.bsr_spmv import fused_bsr_spmv
-from surface_multigrid_code_torch.ops.sparse import BSRMatrix
+from surface_multigrid_code_torch.ops.sparse import BSRMatrix, row_lanes
+from surface_multigrid_code_torch.ops.spmv import launch_lanes
 from surface_multigrid_code_torch.solver import bsr as tbsr
 from surface_multigrid_code_torch.utils.synthetic import icosphere
 
@@ -252,3 +257,46 @@ def test_gershgorin_bound_covers_power_iteration(balloon_pair):
     ref = float(jbsr._bsr_gershgorin_lam(hj.levels[0].A, hj.levels[0].diag))
     assert abs(gersh - ref) <= 1e-12 * ref
     assert gersh >= lv0.lam_max / 1.1
+
+
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_block_lanes_follow_the_shapes(balloon_pair, level):
+    """BSRMatrix.lanes: row_lanes of the level's blocks per row, set when
+    the refresh builds the level, kept by ``.to()`` and by the next refresh."""
+    _V, _F, _mgj, _mgt, jstep, tstep, x = balloon_pair
+    vals, _ = _block_vals(jstep, tstep, x)
+    A = tstep.solver.refresh(torch.as_tensor(vals)).levels[level].A
+    pat = tstep.solver.plans[level]
+    mean = pat.nnz_out / pat.n
+    assert A.lanes == row_lanes(pat.nnz_out, pat.n) == row_lanes(A.nnz, A.n_rows)
+    assert A.lanes in (1, 2, 4, 8, 16, 32)
+    assert A.lanes >= mean or A.lanes == 32
+    assert A.lanes == 1 or A.lanes / 2 < mean
+    assert A.to(torch.float32).lanes == A.lanes
+    assert A.blocks.dtype == torch.float32
+    again = tstep.solver.refresh(torch.as_tensor(2.0 * vals)).levels[level].A
+    assert again is not A and again.lanes == A.lanes
+
+
+H100_THREADS = 132 * 2048  # SMs x resident threads per SM
+
+
+@pytest.mark.parametrize("rows, nnz, lanes, launched", [
+    (15804, 110616, 8, 8),    # bunny_15K level 0: 7.0 blocks a row, one wave
+    (3952, 70340, 32, 32),    # its Galerkin levels: 17.8, 23.6, 26.2 blocks a row
+    (989, 23329, 32, 32),
+    (249, 6523, 32, 32),
+    (63210, 442458, 8, 4),    # the subdivided bunny's level 0: capped to one wave
+])
+def test_block_launch_plan(rows, nnz, lanes, launched):
+    """A block operator's lanes come from its shapes when it is built; a
+    launch keeps them unless rows x lanes exceed the card's resident
+    threads, and then halves them."""
+    indptr = torch.as_tensor(np.linspace(0, nnz, rows + 1).round().astype(np.int32))
+    A = BSRMatrix(indptr, torch.zeros(nnz, dtype=torch.int32),
+                  torch.zeros((nnz, 3, 3), dtype=torch.float32), rows)
+    assert A.lanes == lanes
+    got = launch_lanes(A.lanes, A.n_rows, H100_THREADS)
+    assert got == launched
+    assert rows * got <= H100_THREADS
+    assert got == lanes or rows * 2 * got > H100_THREADS

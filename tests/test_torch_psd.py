@@ -12,6 +12,11 @@ the JAX side, unpack its result and compare block by block:
 
 Then ``psd_project_blocks`` against the JAX package's in float64, and its
 two safeguards: PSD blocks pass bitwise, indefinite ones come out PSD.
+
+The plain version at the edges of the schedule's range (eigenvalues at
++-1.5e-3, +-1e-2 and 1.4) against the exact eigen-projection
+``U max(L, 0) U^T``: the yardstick the card's check of K4 uses. And the
+host's choice of K4's body by block size and type.
 """
 
 import numpy as np
@@ -28,7 +33,12 @@ from surface_multigrid_code_tpu.ops.psd import (
 )
 
 from surface_multigrid_code_torch.models.shell import psd_project_blocks
-from surface_multigrid_code_torch.ops.psd import NS_SCHEDULE, ns_sign_apply
+from surface_multigrid_code_torch.ops.psd import (
+    NS_SCHEDULE,
+    ns_sign_apply,
+    ns_sign_apply_plain,
+    sign_body,
+)
 
 torch.set_num_threads(1)
 
@@ -108,3 +118,54 @@ def test_psd_project_blocks_matches_jax(d):
     # clamped blocks keep their positive part: x^T Hp x >= x^T H x
     x = rng.standard_normal(d)
     assert (x @ got[0] @ x) >= (x @ H[0] @ x) - 1e-8
+
+
+EDGE = np.array([-1.5e-3, 1.5e-3, -1e-2, 1e-2, 1.4])
+
+
+def _edge_blocks(m, d, seed):
+    """Symmetric blocks U diag(lam) U^T whose eigenvalues lam all lie in
+    EDGE (each block holds every value of EDGE), and their exact PSD parts
+    U max(lam, 0) U^T."""
+    rng = np.random.default_rng(seed)
+    U, _ = np.linalg.qr(rng.standard_normal((m, d, d)))
+    lam = rng.choice(EDGE, size=(m, d))
+    lam[:, :EDGE.size] = EDGE
+    X = np.einsum("mij,mj,mkj->mik", U, lam, U)
+    P = np.einsum("mij,mj,mkj->mik", U, np.maximum(lam, 0.0), U)
+    return 0.5 * (X + X.transpose(0, 2, 1)), P
+
+
+@pytest.mark.parametrize("dtype, tol", [
+    # f64: the schedule leaves |sign - 1| <= 5e-9 for |x| >= 1.5e-3, so at
+    # most 1.5e-3 * 5e-9 / 2 on the PSD part, plus rounding
+    (torch.float64, 1e-11),
+    # f32: rounding amplified by the growth cubics (1.1e-5 measured here)
+    (torch.float32, 1e-4),
+])
+@pytest.mark.parametrize("d", [9, 18])
+def test_plain_sign_apply_at_the_schedule_edges(d, dtype, tol):
+    X, P = _edge_blocks(64, d, seed=200 + d)
+    half = 0.5 * ns_sign_apply_plain(torch.as_tensor(X, dtype=dtype)).double().numpy()
+    assert np.abs(half - P).max() <= tol
+    assert np.linalg.eigvalsh(0.5 * (half + half.transpose(0, 2, 1))).min() >= -tol
+
+
+@pytest.mark.parametrize("d, dtype, body", [
+    (9, torch.float32, "registers"),
+    (9, torch.float64, "shared"),
+    (18, torch.float32, "shared"),
+    (18, torch.float64, "shared"),
+])
+def test_sign_body_by_block_size_and_type(d, dtype, body):
+    """9x9 float32 (the balloon's path) runs a thread per block with the
+    iterate in registers; the rest keep the shared-memory body. Forcing
+    the register body on another shape is refused before any launch."""
+    assert sign_body(d, dtype) == body
+    X = torch.as_tensor(_scaled_blocks(4, d, seed=d), dtype=dtype)
+    assert torch.equal(ns_sign_apply(X, body="shared"), ns_sign_apply(X))
+    if body == "shared":
+        with pytest.raises(ValueError, match="registers body"):
+            ns_sign_apply(X, body="registers")
+    with pytest.raises(ValueError, match="unknown body"):
+        ns_sign_apply(X, body="tensor cores")

@@ -198,6 +198,8 @@ H100_THREADS = 132 * 2048  # SMs x resident threads per SM
     (32, 40962, 4), (16, 40962, 4), (8, 40962, 4),  # A_1, PT_1, a level-0 GS color
     (32, 10242, 16), (32, 2562, 32), (32, 4330, 32),  # A_2, A_3, a level-1 color
     (16, 4932, 16), (1, 5, 1), (32, 1, 32),    # ogre's hub PT, tiny launches
+    (8, 15804, 8), (32, 249, 32),              # K3: bunny_15K block rows, levels 0, 3
+    (8, 63210, 4),                             # K3: the subdivided bunny's level 0
 ])
 def test_launch_lanes_fit_one_wave(lanes, n_out, launched):
     """A launch keeps the operator's lanes unless rows x lanes exceed the
