@@ -1,0 +1,341 @@
+#!/usr/bin/env python3
+"""A/B checks and timing of versions of one kernel source on one GPU.
+
+Run from the repository root:
+
+    python3 kernel_ab.py spmv|bsr|psd NAME=FILE.cu [NAME=FILE.cu ...] [--reps N]
+
+Each FILE is a version of one source of ``surface_multigrid_code_torch/csrc/``
+(``spmv.cu`` for K1/K2, ``bsr_spmv.cu`` for K3, ``psd.cu`` for K4): the
+checkout's, or one taken from an earlier commit with
+``git show REV:surface_multigrid_code_torch/csrc/FILE > OUT``. Each is
+compiled by nvcc with the port's flags into a library of its own. Every
+version's output is held against the plain version at ``chip_smoke.TOL``;
+then the versions are timed on the same inputs (and, for the SpMVs, the
+same launch plan, ``ops.spmv.launch_lanes``) in turns A B ... B A, device
+time per call from the profiler (kernel events only), L2 warm.
+
+- ``spmv``: every K1/K2 shape of the static path (``chip_smoke.spmv_cases``:
+  ico7 levels, the largest GS colors, P and PT, the constrained ogre's hub
+  PT, C = 3, the 32-row launch floor); ico7's level-0 A is also timed with
+  the L2 flushed (a 256 MB read) before every call, the time its bound at
+  the HBM rate speaks of.
+- ``bsr``: every K3 shape of the balloon path (the bunny_15K block Hessian
+  at the rest pose, refreshed by the card's f32 stepper: every level but
+  the dense coarsest, with the epilogues ``resid_scaled`` and ``None``).
+- ``psd``: first the blocks with eigenvalues at the schedule's edges
+  (``chip_smoke.edge_blocks``, 9x9 and 18x18, f32 and f64): each version's
+  and the plain version's least eigenvalue of (1/2) Y and largest distance
+  to the exact f64 eigen-projection, and each version's distance to the
+  plain version (held at TOL only in f64); then the time per call on
+  bunny_15K's 31,604 face Hessians at the rest pose (9x9) and on as many
+  random symmetric 18x18 blocks, f32 and f64.
+
+A version whose SpMV entry points take no ``lanes`` argument (one thread
+per row, as in earlier commits) is called without it. Prints one line per
+shape, the card's name and power limit, and a JSON line ``{"<kernel>_ab":
+...}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import torch
+
+import chip_smoke as cs
+
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+EPI_CODE = {None: 0, "axpby": 1, "resid": 2, "add": 3, "resid_scaled": 4}
+
+
+def signatures(kernel, lanes):
+    """{entry point: argtypes} of a version of the kernel's source; ``lanes``:
+    whether its SpMV entry points take a lanes argument."""
+    ln = [_I] * lanes
+    if kernel == "spmv":
+        return {"smg_spmv_fused_f32": [_P] * 8 + [_D, _P, _I] + ln + [_I, _P],
+                "smg_spmv_fused_planes_f32": [_P] * 8 + [_D, _P, _I, _I] + ln + [_I, _P]}
+    if kernel == "bsr":
+        return {"smg_bsr_spmv_f32": [_P] * 8 + [_D, _I] + ln + [_I, _P]}
+    sign = [_P, _P, _I, _I, _P, _I, _P]
+    return {"smg_ns_sign_apply_f32": sign, "smg_ns_sign_apply_f64": sign}
+
+
+# the profiler's name of each kernel's launches
+EVENT = {"spmv": "spmv", "bsr": "bsr_spmv", "psd": "ns_sign_apply"}
+
+
+def build(kernel, versions):
+    """Compile every version at once; returns {name: (library, takes lanes)}."""
+    from surface_multigrid_code_torch._build import BUILD_DIR, NVCC_FLAGS, _nvcc
+
+    out_dir = BUILD_DIR / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, src in versions.items():
+        so = out_dir / f"lib{kernel}_{name}.so"
+        procs[name] = (so, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(so), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {versions[name]}:\n{err}")
+        lanes = "int lanes" in Path(versions[name]).read_text()
+        lib = ctypes.CDLL(str(so))
+        for fn, argtypes in signatures(kernel, lanes).items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = (lib, lanes)
+    return libs
+
+
+def launcher(fn, args, out):
+    """A function that runs one launch of fn(*args, stream) and returns out."""
+    def run():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+        return out
+    return run
+
+
+def spmv_caller(lib, takes_lanes, S, x, kw, lanes):
+    """One launch of this library's K1/K2 on the case."""
+    rows, out = kw.get("rows"), kw.get("out")
+    if out is None:
+        out = torch.empty((S.n_rows, *x.shape[1:]), dtype=x.dtype, device=x.device)
+    n_out = S.n_rows if rows is None else rows.shape[0]
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    args = [S.indptr.data_ptr(), S.indices.data_ptr(), S.data.data_ptr(), x.data_ptr(),
+            out.data_ptr(), ptr(kw["u"]), ptr(kw["b"]), ptr(kw["s"]), kw["escale"],
+            ptr(rows), n_out]
+    if x.ndim == 2:
+        args.append(x.shape[1])
+    args += [lanes] * takes_lanes + [EPI_CODE[kw["epi"]]]
+    fn = lib.smg_spmv_fused_f32 if x.ndim == 1 else lib.smg_spmv_fused_planes_f32
+    return launcher(fn, args, out)
+
+
+def bsr_caller(lib, takes_lanes, A, x, kw, lanes):
+    """One launch of this library's K3 on the case."""
+    out = torch.empty((A.n_rows, 3), dtype=x.dtype, device=x.device)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    args = [A.indptr.data_ptr(), A.indices.data_ptr(), A.blocks.data_ptr(), x.data_ptr(),
+            out.data_ptr(), ptr(kw.get("u")), ptr(kw.get("b")), ptr(kw.get("s")),
+            kw["escale"], A.n_rows, *[lanes] * takes_lanes, EPI_CODE[kw["epi"]]]
+    return launcher(lib.smg_bsr_spmv_f32, args, out)
+
+
+def psd_caller(lib, X, coeffs):
+    """One launch of this library's K4 on the blocks X."""
+    from surface_multigrid_code_torch.ops.psd import NS_SCHEDULE
+
+    Y = torch.empty_like(X)
+    fn = lib.smg_ns_sign_apply_f32 if X.dtype == torch.float32 else lib.smg_ns_sign_apply_f64
+    args = [X.data_ptr(), Y.data_ptr(), X.shape[0], X.shape[1],
+            ctypes.cast(coeffs, ctypes.c_void_p), len(NS_SCHEDULE)]
+    return launcher(fn, args, Y)
+
+
+def kernel_ms(fn, reps, event, before=None):
+    """Device time per call of fn's kernel (one launch a call, whose name
+    holds ``event``): the mean duration of its launches the profiler
+    recorded (it now and then drops some); ``before`` runs ahead of every
+    call and is not counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(8):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if before is not None:
+                    before()
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA and event in e.name]
+        if ev:
+            return sum(e.time_range.elapsed_us() for e in ev) / len(ev) / 1e3
+    raise RuntimeError("the profiler recorded no kernel in 8 sessions")
+
+
+def in_turns(runs, reps, event, before=None):
+    """{name: [device ms per call, one per turn]} over turns A B ... B A."""
+    order = [*runs, *reversed(runs)]
+    out = {name: [] for name in runs}
+    for name in order:
+        out[name].append(kernel_ms(runs[name], reps, event, before))
+    return out
+
+
+def turns_line(warm):
+    return ", ".join(f"{name} {[round(1e3 * t, 3) for t in ts]}" for name, ts in warm.items())
+
+
+def spmv_ab(libs, dev, reps):
+    from surface_multigrid_code_torch import SolveConfig, min_quad_with_fixed_mg_precompute
+    from surface_multigrid_code_torch.config import SmootherType
+    from surface_multigrid_code_torch.ops.spmv import (
+        card_threads,
+        fused_spmv_plain,
+        launch_lanes,
+    )
+
+    _, _, mg, A, _, _ = cs.ico_system(7)
+    gs = min_quad_with_fixed_mg_precompute(
+        A, None, mg, SolveConfig(smoother=SmootherType.MULTICOLOR_GS), device=dev)
+    ogre = cs.ogre_system(dev)[0]
+    cases = cs.spmv_cases(gs.hier, ogre.hier, dev)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    recs = []
+    for k, case in enumerate(cases):
+        label, S, C, epi, rows, _ = case
+        H, x, kw, host_rows = cs.shape_inputs(k, case, dev)
+        n_out = S.n_rows if rows is None else rows.shape[0]
+        lanes = launch_lanes(S.lanes, n_out, card_threads(dev.index or 0))
+        for name, (lib, takes) in libs.items():  # each version against the plain one
+            xk, xp = x.clone(), x.clone()  # in place with rows: x, u and out one buffer
+            kk = {**kw, "u": xk, "out": xk} if rows is not None else kw
+            kp = {**kw, "u": xp, "out": xp} if rows is not None else kw
+            y = spmv_caller(lib, takes, S, xk, kk, lanes)()
+            ref = fused_spmv_plain(S, xp, **kp)
+            cs._compare(y, ref, torch.float32, f"{name} {label}", {}, name)
+        runs = {name: spmv_caller(lib, takes, S, x, kw, lanes)
+                for name, (lib, takes) in libs.items()}
+        warm = in_turns(runs, reps, EVENT["spmv"])
+        rec = {"shape": label, "C": C, "rows": int(n_out), "lanes": lanes,
+               "bound_ms": cs.bound_ms(*cs.spmv_bytes(H, C, epi, host_rows))[0],
+               **{f"{name}_ms": float(np.median(t)) for name, t in warm.items()}}
+        line = turns_line(warm)
+        if label.startswith("A_0 axpby"):
+            cold = in_turns(runs, reps, EVENT["spmv"], before=flush.sum)
+            rec.update({f"{name}_l2_flushed_ms": float(np.median(t))
+                        for name, t in cold.items()})
+            line += "; L2 flushed: " + turns_line(cold)
+        recs.append(rec)
+        cs.log(f"{label} ({n_out} rows, lanes {lanes}): bound {1e3 * rec['bound_ms']:.3f} us; "
+               f"device us per call, in turns: {line}")
+    return recs
+
+
+def bsr_ab(libs, dev, reps):
+    from surface_multigrid_code_torch import mg_precompute
+    from surface_multigrid_code_torch.models.balloon import BsrBalloonStepper
+    from surface_multigrid_code_torch.ops.bsr_spmv import fused_bsr_spmv_plain
+    from surface_multigrid_code_torch.ops.spmv import card_threads, launch_lanes
+    from surface_multigrid_code_torch.utils.obj_io import read_obj
+    from surface_multigrid_code_torch.utils.paths import mesh_path
+
+    V, F = read_obj(mesh_path(cs.BALLOON_MESH))
+    shell, M = cs.balloon_shell(V, F, dev)
+    stepper = BsrBalloonStepper(shell, M, mg_precompute(V, F, verbose=False),
+                                cs.balloon_defaults()["dt"])
+    hier = stepper.solver.refresh(cs.block_hessian(stepper, V, dev))
+    g = torch.Generator(device=dev).manual_seed(7)
+    recs = []
+    for lv, level in enumerate(hier.levels[:-1]):
+        A = level.A
+        x = torch.randn((A.n_cols, 3), device=dev, generator=g)
+        b = torch.randn((A.n_rows, 3), device=dev, generator=g)
+        lanes = launch_lanes(A.lanes, A.n_rows, card_threads(dev.index or 0))
+        for epi in ("resid_scaled", None):
+            kw = {"epi": epi, "b": b, "s": level.dinv, "escale": 1.0}
+            ref = fused_bsr_spmv_plain(A, x, epi, b=b, s=level.dinv)
+            runs = {name: bsr_caller(lib, takes, A, x, kw, lanes)
+                    for name, (lib, takes) in libs.items()}
+            for name, run in runs.items():
+                cs._compare(run(), ref, torch.float32, f"{name} level {lv} {epi}", {}, name)
+            warm = in_turns(runs, reps, EVENT["bsr"])
+            nbytes, flops = cs.bsr_bytes(A, epi)
+            rec = {"shape": f"level {lv} {epi}", "rows": A.n_rows, "blocks": A.nnz,
+                   "lanes": lanes, "bound_ms": cs.bound_ms(nbytes, flops)[0],
+                   **{f"{name}_ms": float(np.median(t)) for name, t in warm.items()}}
+            recs.append(rec)
+            cs.log(f"level {lv} {epi} ({A.n_rows} rows, {A.nnz} blocks, lanes {lanes}): bound "
+                   f"{1e3 * rec['bound_ms']:.3f} us; device us per call, in turns: "
+                   f"{turns_line(warm)}")
+    return recs
+
+
+def psd_ab(libs, dev, reps):
+    from surface_multigrid_code_torch.ops.psd import NS_SCHEDULE, ns_sign_apply_plain
+    from surface_multigrid_code_torch.utils.obj_io import read_obj
+    from surface_multigrid_code_torch.utils.paths import mesh_path
+
+    coeffs = (ctypes.c_double * (2 * len(NS_SCHEDULE)))(
+        *(float(v) for pair in NS_SCHEDULE for v in pair))
+    recs = []
+    for d in (9, 18):
+        E, P = cs.edge_blocks(4096, d, 2 + d)  # chip_smoke.check_sign_kernel's sets
+        for dt in (torch.float32, torch.float64):
+            X = torch.as_tensor(E, device=dev).to(dt).contiguous()
+            ref = ns_sign_apply_plain(X)
+            rec = {"shape": f"edge {d}x{d} {str(dt)[6:]}", "blocks": X.shape[0]}
+            for name, Y in {"plain": ref, **{name: psd_caller(lib, X, coeffs)()
+                                             for name, (lib, _) in libs.items()}}.items():
+                half = 0.5 * Y.double().cpu().numpy()
+                sym = 0.5 * (half + half.transpose(0, 2, 1))
+                rec[name] = {"least_eig": float(np.linalg.eigvalsh(sym).min()),
+                             "distance": float(np.abs(half - P).max())}
+                if name != "plain":
+                    rec[name]["vs_plain"] = float((Y - ref).abs().max())
+                    if dt == torch.float64:
+                        cs._compare(Y, ref, dt, f"{name} {rec['shape']}", {}, name)
+            recs.append(rec)
+            cs.log(f"{rec['shape']}: least eigenvalue of Y/2, max distance to the f64 "
+                   f"eigen-projection (and to the plain version): "
+                   + "; ".join(f"{k} {v}" for k, v in rec.items() if isinstance(v, dict)))
+    V, F = read_obj(mesh_path(cs.BALLOON_MESH))
+    shell, _ = cs.balloon_shell(V, F, dev)
+    x9 = torch.as_tensor(np.asarray(V)[F].reshape(-1, 9), device=dev, dtype=torch.float64)
+    X9 = cs.scaled_blocks(shell.face_hess(x9, shell.abars.double()))
+    g = torch.Generator(device=dev).manual_seed(6)
+    R = cs.scaled_blocks(torch.randn((X9.shape[0], 18, 18), device=dev, generator=g,
+                                     dtype=torch.float64))
+    for label, X in (("face Hessians 9x9", X9), ("random 18x18", R)):
+        for dt in (torch.float32, torch.float64):
+            Xd = X.to(dt).contiguous()
+            runs = {name: psd_caller(lib, Xd, coeffs) for name, (lib, _) in libs.items()}
+            ref = ns_sign_apply_plain(Xd)
+            for name, run in runs.items():
+                cs._compare(run(), ref, dt, f"{name} {label} {dt}", {}, name)
+            warm = in_turns(runs, reps, EVENT["psd"])
+            rec = {"shape": f"{label} {str(dt)[6:]}", "blocks": Xd.shape[0],
+                   **{f"{name}_ms": float(np.median(t)) for name, t in warm.items()}}
+            recs.append(rec)
+            cs.log(f"{rec['shape']} ({Xd.shape[0]} blocks): device us per call, in turns: "
+                   f"{turns_line(warm)}")
+    return recs
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("kernel", choices=("spmv", "bsr", "psd"))
+    ap.add_argument("versions", nargs="+", help="NAME=FILE.cu")
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: kernel_ab.py runs only on a GPU")
+    versions = dict(v.split("=", 1) for v in args.versions)
+    dev = torch.device("cuda", 0)
+    card = cs.card_line()
+    cs.log(card)
+    libs = build(args.kernel, versions)
+    recs = {"spmv": spmv_ab, "bsr": bsr_ab, "psd": psd_ab}[args.kernel](libs, dev, args.reps)
+    cs.log(card)
+    cs.log(json.dumps({f"{args.kernel}_ab": recs, "versions": versions, "reps": args.reps}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

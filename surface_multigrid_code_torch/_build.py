@@ -40,8 +40,8 @@ _K1_ARGS = [_p, _p, _p, _p, _p, _p, _p, _p, _d, _p, _i, _i, _i, _p]
 _K2_ARGS = [_p, _p, _p, _p, _p, _p, _p, _p, _d, _p, _i, _i, _i, _i, _p]
 # indptr, indices, blocks, x, y, u, b, s, escale, n, lanes, epi, stream
 _K3_ARGS = [_p, _p, _p, _p, _p, _p, _p, _p, _d, _i, _i, _i, _p]
-# X, Y, m, d, schedule (host double [2 * steps]), steps, body, stream
-_K4_ARGS = [_p, _p, _i, _i, _p, _i, _i, _p]
+# X, Y, m, d, schedule (host double [2 * steps]), steps, stream
+_K4_ARGS = [_p, _p, _i, _i, _p, _i, _p]
 SIGNATURES = {
     "smg_spmv_fused_f32": _K1_ARGS,
     "smg_spmv_fused_f64": _K1_ARGS,

@@ -39,7 +39,7 @@
 // differ by rounding only. L is a template parameter, as in spmv.cu, where
 // a runtime L measured 2-12% slower.
 //
-// Measured against this design (bsr_ab.py, H100, bunny_15K levels 0-3,
+// Measured against this design (kernel_ab.py bsr, H100, bunny_15K levels 0-3,
 // f32): staging each warp's contiguous block range through shared memory
 // with coalesced loads was 4-40% slower (the stage adds a dependent
 // shared-memory round trip and two __syncwarp per 32 blocks to a launch

@@ -9,25 +9,30 @@
 // the matrix sign of X and (s/2) Y the PSD projection of the unscaled block
 // (models/shell.psd_project_blocks does the scaling and the clamp test).
 // X is symmetric (psd_project_blocks symmetrizes it exactly), so every
-// iterate, a polynomial in X, is symmetric too, and so is X Z.
+// iterate, a polynomial in X, is symmetric too; X Z is not, in rounding,
+// since the computed Z does not commute with X exactly.
 //
 // The TPU kernel packs 14 (or 7) blocks into one block-diagonal 128 x 128
 // tile so that the MXU gets a large matmul, and selects the blocks back
-// out with 0/1 einsums. None of that is needed here. Two bodies, chosen
-// by the caller (ops/psd.sign_body):
+// out with 0/1 einsums. None of that is needed here. The body follows
+// from d and the type:
 //
 // - registers (9 x 9 in f32, the balloon's path): one thread per block.
-//   The iterate lives in registers as its 45 upper-triangle entries, and
-//   each product Z Z, (Z Z) Z and X Z is evaluated for i <= j only: 405
-//   FMAs where the full product takes 729. Every index is a compile-time
-//   constant of fully unrolled loops, so the arrays stay in registers:
-//   Z, Z Z and the next Z are 135 live floats (X is read again from
-//   shared memory for the last product). A CTA of kSymBlocks blocks
-//   stages X through shared memory with coalesced loads of its
-//   kSymBlocks x 81 contiguous values; a thread then reads its block at a
-//   stride of 81 words, which is odd, so without bank conflicts, and Y
-//   goes back the same way. No barrier runs between the load and the
-//   store: each thread works on its own block alone.
+//   The iterate lives in registers as its 45 upper-triangle entries
+//   (read from X's upper triangle), and each product Z Z and (Z Z) Z is
+//   evaluated for i <= j only: 405 FMAs where the full product takes 729.
+//   Every index is a compile-time constant of fully unrolled loops, so the
+//   arrays stay in registers: Z, Z Z and (Z Z) Z are 135 live floats. The
+//   last product X Z is computed in full, row by row with X's row read
+//   from shared memory: mirroring its upper triangle instead left a
+//   least eigenvalue of -1.1e-5 in Y / 2 on blocks with eigenvalues at
+//   the schedule's edges, where the full product leaves -6e-8, as the
+//   plain version does. A CTA of kSymBlocks blocks stages X through shared
+//   memory with coalesced loads of its kSymBlocks x 81 contiguous values;
+//   a thread then reads its block at a stride of 81 words, which is odd,
+//   so without bank conflicts, and Y goes back the same way. No barrier
+//   runs between the load and the store: each thread works on its own
+//   block alone.
 // - shared (9 x 9 in f64, 18 x 18 in either type): one CTA runs BPC
 //   blocks (4 of 9 x 9, or 1 of 18 x 18: 324 threads either way), one
 //   thread per output entry, with the iterate in shared memory and three
@@ -45,7 +50,8 @@
 // of FMAs; the plain PyTorch version's bmm sums in its own order.
 //
 // Bound: per 9 x 9 block 25 symmetric products of 45 x 9 FMAs (810 FLOP
-// each, 20K FLOP a block) for 648 B (f32) of traffic, so operations: at
+// each, 20K FLOP a block; the register body does 24 of them and one full
+// product of 81 x 9) for 648 B (f32) of traffic, so operations: at
 // bunny_15K's 31,604 faces 0.64 GFLOP, 9.55 us at the card's f32 CUDA-core
 // peak. The register body issues those FMAs from 988 warps, about two per
 // scheduler; each warp has 45 independent FMA chains per product, which
@@ -62,8 +68,6 @@ namespace {
 
 constexpr int kMaxSteps = 32;
 constexpr int kSymBlocks = 64;  // blocks (threads) per CTA of the register body
-
-enum Body { BODY_SHARED = 0, BODY_REGISTERS = 1 };
 
 struct Schedule {
   double a[kMaxSteps];
@@ -177,24 +181,19 @@ ns_sign_apply_registers_kernel(const float* __restrict__ X, float* __restrict__ 
 #pragma unroll
       for (int k = 0; k < N; ++k) z[k] = a * z[k] - b * zn[k];
     }
-    // Y = X + X Z, X read back from the stage into the Z Z buffer
+    // Y = X + X Z in full, row by row: row i of X goes to registers and
+    // row i of Y overwrites it in the stage
 #pragma unroll
     for (int i = 0; i < D; ++i) {
+      float xr[D];
+#pragma unroll
+      for (int q = 0; q < D; ++q) xr[q] = mine[i * D + q];
 #pragma unroll
       for (int j = 0; j < D; ++j) {
-        if (j >= i) z2[up<D>(i, j)] = mine[i * D + j];
-      }
-    }
-    sym_product<D>(z2, z, zn);
+        float acc = xr[0] * z[up<D>(0, j)];
 #pragma unroll
-    for (int i = 0; i < D; ++i) {
-#pragma unroll
-      for (int j = 0; j < D; ++j) {
-        if (j >= i) {
-          const float v = z2[up<D>(i, j)] + zn[up<D>(i, j)];
-          mine[i * D + j] = v;
-          mine[j * D + i] = v;
-        }
+        for (int q = 1; q < D; ++q) acc = fmaf(xr[q], z[up<D>(q, j)], acc);
+        mine[i * D + j] = xr[j] + acc;
       }
     }
   }
@@ -211,11 +210,10 @@ void launch(const T* X, T* Y, int m, const Schedule& sched, cudaStream_t stream)
 
 template <typename T>
 int ns_sign_apply(const T* X, T* Y, int m, int d, const double* schedule, int steps,
-                  int body, void* stream_ptr) {
+                  void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (steps < 0 || steps > kMaxSteps) return static_cast<int>(cudaErrorInvalidValue);
   if (d != 9 && d != 18) return static_cast<int>(cudaErrorInvalidValue);
-  if (body != BODY_SHARED && body != BODY_REGISTERS) return static_cast<int>(cudaErrorInvalidValue);
   if (m <= 0) return static_cast<int>(cudaGetLastError());
   Schedule sched;
   sched.n = steps;
@@ -223,18 +221,13 @@ int ns_sign_apply(const T* X, T* Y, int m, int d, const double* schedule, int st
     sched.a[i] = schedule[2 * i];
     sched.b[i] = schedule[2 * i + 1];
   }
-  if (body == BODY_REGISTERS) {
-    if constexpr (sizeof(T) == sizeof(float)) {
-      if (d != 9) return static_cast<int>(cudaErrorInvalidValue);
-      const int grid = (m + kSymBlocks - 1) / kSymBlocks;
-      ns_sign_apply_registers_kernel<9><<<grid, kSymBlocks, 0, stream>>>(X, Y, m, sched);
-    } else {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-  } else if (d == 9) {
-    launch<T, 9, 4>(X, Y, m, sched, stream);
-  } else {
+  if (d == 18) {
     launch<T, 18, 1>(X, Y, m, sched, stream);
+  } else if constexpr (sizeof(T) == sizeof(float)) {
+    const int grid = (m + kSymBlocks - 1) / kSymBlocks;
+    ns_sign_apply_registers_kernel<9><<<grid, kSymBlocks, 0, stream>>>(X, Y, m, sched);
+  } else {
+    launch<T, 9, 4>(X, Y, m, sched, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -242,15 +235,12 @@ int ns_sign_apply(const T* X, T* Y, int m, int d, const double* schedule, int st
 }  // namespace
 
 // schedule: host array of `steps` (a, b) pairs, copied into the launch.
-// body: 0 shared (any d), 1 registers (d = 9, f32 only).
 extern "C" int smg_ns_sign_apply_f32(const float* X, float* Y, int m, int d,
-                                     const double* schedule, int steps, int body,
-                                     void* stream) {
-  return ns_sign_apply<float>(X, Y, m, d, schedule, steps, body, stream);
+                                     const double* schedule, int steps, void* stream) {
+  return ns_sign_apply<float>(X, Y, m, d, schedule, steps, stream);
 }
 
 extern "C" int smg_ns_sign_apply_f64(const double* X, double* Y, int m, int d,
-                                     const double* schedule, int steps, int body,
-                                     void* stream) {
-  return ns_sign_apply<double>(X, Y, m, d, schedule, steps, body, stream);
+                                     const double* schedule, int steps, void* stream) {
+  return ns_sign_apply<double>(X, Y, m, d, schedule, steps, stream);
 }

@@ -35,7 +35,7 @@
 // for the stride, the rows per CTA and the shuffle width) the kernel took
 // 2-12% longer at 15 of the 17 L > 1 shapes of the static path, and at
 // L = 1 this body runs as fast as a plain one-thread-per-row loop
-// (spmv_ab.py, H100).
+// (kernel_ab.py spmv, H100).
 //
 // L is chosen on the host, from shapes only: per operator the smallest
 // power of two at or above the mean row length, at most 32
@@ -70,7 +70,7 @@
 // us at the 3.35 TB/s of HBM; the whole ico7 hierarchy fits in the 50 MB
 // L2, so on the V-cycle those bytes come from L2 and HBM is not the limit
 // the kernel meets (with the L2 flushed before each call it takes 7.1 us,
-// spmv_ab.py, H100). A Galerkin level or a GS color moves 0.04-7 MB,
+// kernel_ab.py spmv, H100). A Galerkin level or a GS color moves 0.04-7 MB,
 // under the ~2 us launch floor, and is latency-bound: what this design
 // attacks is the chain of dependent loads per row.
 //

@@ -7,17 +7,19 @@ the cubic iteration ``Z <- a Z - b Z^3`` started from ``X`` over the
 is X's PSD part. ``models/shell.psd_project_blocks`` scales and clamps
 around it.
 
-A CUDA tensor goes to the hand-written kernel K4 of ``csrc/psd.cu``, in
-the body ``sign_body(d, dtype)`` picks: 9x9 float32 blocks, the balloon's
-path, run one thread per block with the iterate's upper triangle in
-registers; 9x9 float64 and 18x18 blocks keep the shared-memory body, one
-thread per entry. A CPU tensor goes to ``ns_sign_apply_plain``, the same
-arithmetic as batched ``torch.bmm``. Both run in the working type (f32 or
-f64) without TF32: the schedule's growth cubics amplify input rounding
-about 700-fold on small-eigenvalue directions (see the JAX package's
-module note), so the products must stay full precision. Each block is
-computed alone: the TPU's 126-wide block-diagonal packing and its
-selector einsums are not needed here.
+A CUDA tensor goes to the hand-written kernel K4 of ``csrc/psd.cu``, whose
+body follows from d and the type: 9x9 float32 blocks, the balloon's path,
+run one thread per block with the iterate's upper triangle in registers;
+9x9 float64 and 18x18 blocks run one thread per entry with the iterate in
+shared memory. The iterate starts from X's upper triangle in the first
+body and from all of X in the second, so X must be symmetric, as
+``psd_project_blocks`` makes it. A CPU tensor goes to
+``ns_sign_apply_plain``, the same arithmetic as batched ``torch.bmm``.
+Both run in the working type (f32 or f64) without TF32: the schedule's
+growth cubics amplify input rounding about 700-fold on small-eigenvalue
+directions (see the JAX package's module note), so the products must
+stay full precision. Each block is computed alone: the TPU's 126-wide
+block-diagonal packing and its selector einsums are not needed here.
 """
 
 from __future__ import annotations
@@ -48,17 +50,6 @@ NS_SCHEDULE = (
 )
 
 BLOCK_SIZES = (9, 18)
-# the kernel bodies of csrc/psd.cu, by their C code
-BODIES = {"shared": 0, "registers": 1}
-
-
-def sign_body(d: int, dtype: torch.dtype) -> str:
-    """The K4 body for d x d blocks of dtype: "registers" (a thread per
-    block, the iterate's d(d+1)/2 upper-triangle entries and two more such
-    buffers in registers) for 9x9 float32, else "shared" (a thread per
-    entry, the iterate in shared memory): 135 doubles, or 3 x 171 floats,
-    do not fit a thread's 255 registers."""
-    return "registers" if (d == 9 and dtype == torch.float32) else "shared"
 
 
 def ns_sign_apply_plain(X: torch.Tensor, schedule=NS_SCHEDULE) -> torch.Tensor:
@@ -78,26 +69,17 @@ def ns_sign_apply_plain(X: torch.Tensor, schedule=NS_SCHEDULE) -> torch.Tensor:
 ns_sign_apply_plain.calls = 0
 
 
-def ns_sign_apply(X: torch.Tensor, schedule=NS_SCHEDULE, body: str | None = None
-                  ) -> torch.Tensor:
+def ns_sign_apply(X: torch.Tensor, schedule=NS_SCHEDULE) -> torch.Tensor:
     """X + X @ sign(X) per block of symmetric ``X [m, d, d]``; see the
-    module docstring. ``body`` forces a kernel body (default
-    ``sign_body(d, dtype)``); "registers" takes only 9x9 float32.
+    module docstring.
 
     Returns a new tensor. Each kernel launch adds one to
-    ``ns_sign_apply.launches``; ``ns_sign_apply.last_body`` is the body of
-    the last launch.
+    ``ns_sign_apply.launches``.
     """
     if X.ndim != 3 or X.shape[1] != X.shape[2] or X.shape[1] not in BLOCK_SIZES:
         raise ValueError(f"X must be [m, d, d] with d in {BLOCK_SIZES}, not {tuple(X.shape)}")
     if X.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"kernel takes float32 or float64 blocks, not {X.dtype}")
-    d = X.shape[1]
-    body = sign_body(d, X.dtype) if body is None else body
-    if body not in BODIES:
-        raise ValueError(f"unknown body {body!r} (want one of {tuple(BODIES)})")
-    if body == "registers" and sign_body(d, X.dtype) != "registers":
-        raise ValueError(f"the registers body takes 9x9 float32 blocks, not {d}x{d} {X.dtype}")
     if X.device.type == "cpu":
         return ns_sign_apply_plain(X, schedule)
     if X.device.type != "cuda":
@@ -114,15 +96,13 @@ def ns_sign_apply(X: torch.Tensor, schedule=NS_SCHEDULE, body: str | None = None
         *(float(v) for pair in schedule for v in pair))
     fn = lib.smg_ns_sign_apply_f32 if X.dtype == torch.float32 else lib.smg_ns_sign_apply_f64
     with torch.cuda.device(X.device):
-        err = fn(X.data_ptr(), Y.data_ptr(), X.shape[0], d,
-                 ctypes.cast(coeffs, ctypes.c_void_p), len(schedule), BODIES[body],
+        err = fn(X.data_ptr(), Y.data_ptr(), X.shape[0], X.shape[1],
+                 ctypes.cast(coeffs, ctypes.c_void_p), len(schedule),
                  torch.cuda.current_stream().cuda_stream)
     ns_sign_apply.launches += 1
-    ns_sign_apply.last_body = body
     if err != 0:
         raise RuntimeError(f"ns_sign_apply launch failed: cudaError {err}")
     return Y
 
 
 ns_sign_apply.launches = 0
-ns_sign_apply.last_body = None
