@@ -13,12 +13,21 @@ two paths through their public entry points:
 - the static solve (SSP hierarchy -> precompute -> multigrid solve) at
   icosphere(7) size, then the constrained, multi-column and
   iterative-refinement solve shapes;
+- mean-curvature flow (``MCFStepper``, example 05's recipe, f32): 20
+  steps on bunny, each held to a host f64 flow, and 3 steps each on ogre
+  and the midpoint-subdivided ogre, every step converged;
 - the balloon (``models.balloon.run_balloon``, example 06 at its
   defaults) for 3 steps on bunny_15K and 1 step on the midpoint-subdivided
-  bunny, held against the host sparse-LU oracle.
+  bunny, held against the host sparse-LU oracle, and one step of its
+  scalar cross-check (``solver="scalar"``) on bunny_15K.
 
-It times V-cycles, balloon steps and kernels against the plain versions,
-and ends with
+Each path runs with the kernels' launch counts set to 0 just before it
+and read just after: it must have launched its kernels, and no plain
+version; then K1/K2 are held to their plain versions at the path's own
+shapes. It times V-cycles, MCF and balloon steps and kernels against the
+plain versions (the MCF and balloon timings each in a child process,
+``--child mcf|balloon``; every profiler reading is held to CUDA-event
+times), and ends with
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": N}}
 
@@ -31,6 +40,8 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import os
+import pickle
 import subprocess
 import sys
 import time
@@ -59,6 +70,27 @@ BLOCK_KERNELS = {
 BALLOON_MESH = "bunny_15K_init"
 BALLOON_STEPS = 3
 ORACLE_GAP = (0.1, 0.05, 0.05)
+# MCF: example 05's recipe (hierarchy ratio 0.25, min_coarsest_nv 500,
+# dec_type 1; delta 0.01, tol 5e-7, f32, multicolor GS) as (mesh,
+# midpoint-subdivided, steps, held to the host f64 flow). MCF_EXACT_GAP
+# bounds max|U_card - U_exact| at every step: 8x the 6.3e-6 the JAX
+# package reads in f32 on the CPU over 20 bunny steps.
+MCF_MESHES = (("bunny", False, 20, True), ("ogre", False, 3, False),
+              ("ogre", True, 3, False))
+MCF_TOL = 5e-7
+MCF_EXACT_GAP = 5e-5
+MCF_TIMED_STEPS = 6  # CUDA events around each; step 0 warms up
+# The profiler's checks. A kernel's mean time per recorded launch t is
+# held to its back-to-back time per call b (burst_ms: the kernel plus the
+# gap to the next launch, 1.02-1.24 us on the H100 at every shape timed):
+# PROFILER_BAND[0] * b - LAUNCH_GAP_MS <= t <= PROFILER_BAND[1] * b, which
+# a reading at half the kernel's time fails at every shape. A profiled
+# step must have recorded at least STEP_RECORDED of each hand kernel's
+# counted launches.
+PROFILER_BAND = (0.9, 1.15)
+LAUNCH_GAP_MS = 1.5e-3
+STEP_RECORDED = 0.9
+CHILD_RESULT = "child result: "
 # Relative tolerance of the plain f32 ico solves. Their f32 residual floor
 # is about 1.5e-5 ||b||: ||b - Az|| is a strongly cancelling difference
 # (|A||z| is ~1000x the residual scale). 1e-4 ||b|| sits above that floor;
@@ -390,35 +422,103 @@ def cuda_ms(fn, reps, warmup=3):
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, reps, kernel=None):
-    """Per-call device time of fn from the profiler, and the device events
-    recorded per call. Without ``kernel``: the summed durations of the
-    kernels and copies recorded over reps calls, over reps. With
-    ``kernel`` (a substring of the name of the one kernel a call of fn
-    launches): the mean duration of the recorded launches of that kernel.
-    The profiler was seen to drop some events of a session (17 of 20
-    launches, every session of one call) and to carry events of one
-    session over into the next, so a sum over reps undercounts where the
-    mean of a named kernel does not."""
+def device_ms(fn, reps, kernel=None, counts=None):
+    """One profiler session of reps calls of fn. Returns a record: "ms",
+    the device time per call: without ``kernel`` the summed durations of
+    the kernels and copies recorded, over reps; with ``kernel`` (a
+    substring of the name of the one kernel a call of fn launches) the
+    mean duration of its recorded launches. "events": device events
+    recorded per call; "wall_ms": the session's time per call between
+    CUDA events around the reps calls (the same sample). With ``counts``
+    ({kernel name substring: () -> the wrapper's launch count}):
+    "counted", the launches of each in the session, and "recorded", the
+    events of that name the profiler kept. The profiler was seen to drop
+    some events of a session (17 of 20 launches, every session of one
+    call), so a sum over reps undercounts where the mean of a named kernel
+    does not."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    counts = counts or {}
     fn()
     torch.cuda.synchronize()
     for attempt in range(8):  # a session now and then records no device event
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            before = {k: c() for k, c in counts.items()}
+            e0.record()
             for _ in range(reps):
                 fn()
+            e1.record()
             torch.cuda.synchronize()
-        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and (kernel is None or kernel in e.name)]
+            counted = {k: c() - before[k] for k, c in counts.items()}
+        dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ev = [e for e in dev_ev if kernel is None or kernel in e.name]
         if ev:
             total = sum(e.time_range.elapsed_us() for e in ev) / 1e3
-            return (total / reps if kernel is None else total / len(ev)), len(ev) / reps
+            return {"ms": total / reps if kernel is None else total / len(ev),
+                    "events": len(dev_ev) / reps, "wall_ms": e0.elapsed_time(e1) / reps,
+                    "counted": counted,
+                    "recorded": {k: sum(k in e.name for e in dev_ev) for k in counts}}
         log(f"  profiler session {attempt} recorded no device event"
             + ("" if kernel is None else f" named {kernel}") + "; again")
         time.sleep(1.0)
     raise RuntimeError("the profiler recorded no device event in 8 sessions")
+
+
+def burst_ms(fn, reps):
+    """Per-call device time of fn from CUDA events around reps calls queued
+    behind a spin kernel (``torch.cuda._sleep``), so that the card runs
+    them back to back however long the host takes per call: each call's
+    kernels plus the gaps between launches. The spin is lengthened until
+    the host has queued every call before it ends."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    for _ in range(4):
+        ea, e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        ea.record()
+        torch.cuda._sleep(cycles)
+        e0.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        e1.record()
+        torch.cuda.synchronize()
+        if host_ms < 0.8 * ea.elapsed_time(e0):
+            return e0.elapsed_time(e1) / reps
+        cycles *= 4
+    raise RuntimeError("the calls could not be queued behind the spin kernel")
+
+
+def checked_kernel_ms(fn, reps, kernel, what):
+    """The profiler's mean time of the named kernel over reps calls of fn,
+    held to the back-to-back event time per call (burst_ms) of the same
+    calls (PROFILER_BAND, LAUNCH_GAP_MS), or the run fails (a session that
+    misreads the kernel). Returns (profiler ms, burst ms)."""
+    rec = device_ms(fn, reps, kernel)
+    burst = burst_ms(fn, reps)
+    lo, hi = PROFILER_BAND[0] * burst - LAUNCH_GAP_MS, PROFILER_BAND[1] * burst
+    if not lo <= rec["ms"] <= hi:
+        raise RuntimeError(f"{what}: the profiler reads {kernel} at {1e3 * rec['ms']:.3f} us a "
+                           f"launch, back-to-back calls take {1e3 * burst:.3f} us: outside "
+                           f"[{1e3 * lo:.3f}, {1e3 * hi:.3f}] us")
+    return rec["ms"], burst
+
+
+def checked_step(fn, counts, what, reps=1):
+    """A profiled run of fn (a whole step or cycle): device_ms(fn, reps,
+    counts=counts). Each hand kernel of ``counts`` must have at least
+    STEP_RECORDED of its launches recorded, or the run fails (a session
+    that dropped the step's events would read its device time low)."""
+    rec = device_ms(fn, reps, counts=counts)
+    for name, n in rec["counted"].items():
+        if rec["recorded"][name] < STEP_RECORDED * n:
+            raise RuntimeError(f"{what}: the profiler recorded {rec['recorded'][name]} of {n} "
+                               f"launches of {name}")
+    return rec
 
 
 def in_turns(run, plain_ctx):
@@ -433,6 +533,7 @@ def in_turns(run, plain_ctx):
 
 def timings(depth, V, M, datas, dev):
     """Phase 6: V-cycle times, kernel vs plain, in turns."""
+    from surface_multigrid_code_torch.ops.spmv import fused_spmv
     from surface_multigrid_code_torch.solver.vcycle import vcycle
 
     b = torch.as_tensor(np.asarray(M @ V[:, 0]), dtype=torch.float32, device=dev)
@@ -446,17 +547,21 @@ def timings(depth, V, M, datas, dev):
                 u = vcycle(data.hier, b, u, data.cfg)
 
         wall, raw = in_turns(lambda: cuda_ms(chain, 3) / 10, plain_spmv)
-        busy, n_dev = device_ms(lambda: vcycle(data.hier, b, z, data.cfg), 5)
+        prof = checked_step(lambda: vcycle(data.hier, b, z, data.cfg),
+                            {"spmv_fused_kernel": lambda: fused_spmv.launches},
+                            f"ico{depth} V-cycle ({sm.value})", reps=5)
+        busy, n_dev = prof["ms"], prof["events"]
         with plain_spmv():
-            busy_p, _ = device_ms(lambda: vcycle(data.hier, b, z, data.cfg), 5)
+            busy_p = device_ms(lambda: vcycle(data.hier, b, z, data.cfg), 5)["ms"]
         vc[sm.value] = {
             "ms": wall["kernel"], "plain_ms": wall["plain"],
-            "device_ms": busy, "plain_device_ms": busy_p,
-            "device_ops": n_dev, "idle_share": 1.0 - busy / wall["kernel"],
+            "device_ms": busy, "plain_device_ms": busy_p, "device_ops": n_dev,
+            "profiled_wall_ms": prof["wall_ms"], "idle_share": 1.0 - busy / prof["wall_ms"],
         }
         log(f"phase 6: ico{depth} V-cycle ({sm.value}, f32): wall kernels {raw['kernel']} ms, "
-            f"plain {raw['plain']} ms; device busy {busy:.4f} ms ({n_dev:.0f} device ops), "
-            f"plain {busy_p:.4f} ms")
+            f"plain {raw['plain']} ms; device busy {busy:.4f} ms ({n_dev:.0f} device ops, "
+            f"K1/K2 launches recorded {prof['recorded']} of {prof['counted']}) in "
+            f"{prof['wall_ms']:.4f} ms, plain {busy_p:.4f} ms")
     return vc
 
 
@@ -564,14 +669,16 @@ def spmv_shapes(cases, dev, reps=20):
         if label.startswith("A_0 axpby"):
             fns["plain"] = lambda: fused_spmv_plain(S, x, **kw)
             turns = ["plain", *turns, "plain"]
-        dev_ms, call_ms = timed_turns(fns, turns, reps, {"kernel": "spmv_fused_kernel"})
+        dev_ms, call_ms, burst = timed_turns(fns, turns, reps, {"kernel": "spmv_fused_kernel"},
+                                             label)
         nbytes, flops = spmv_bytes(H, C, epi, host_rows)
         bms, by = bound_ms(nbytes, flops)
         rec = {"shape": label, "C": C, "rows": int(L.shape[0]), "nnz": int(L.nnz),
                "max_row": int(np.diff(L.indptr).max()) if L.shape[0] else 0,
                "row_lanes": S.lanes, "lanes": lanes,
                "bytes": int(nbytes),
-               "bound_ms": bms, "bound_by": by}
+               "bound_ms": bms, "bound_by": by,
+               "kernel_burst_ms": float(np.median(burst["kernel"]))}
         for w in fns:
             rec[f"{w}_ms"] = float(np.median(dev_ms[w]))
             rec[f"{w}_call_ms"] = float(np.median(call_ms[w]))
@@ -582,6 +689,7 @@ def spmv_shapes(cases, dev, reps=20):
             f"({nbytes} B); device kernel {[1e3 * t for t in dev_ms['kernel']]} us, "
             f"cuSPARSE {[1e3 * t for t in dev_ms['library']]} us"
             + (f", plain {[1e3 * t for t in dev_ms['plain']]} us" if "plain" in fns else "")
+            + f"; back to back {[1e3 * t for t in burst['kernel']]} us"
             + f"; per call kernel {1e3 * rec['kernel_call_ms']:.2f} us, cuSPARSE "
             f"{1e3 * rec['library_call_ms']:.2f} us")
     return out
@@ -859,7 +967,8 @@ def balloon_path(V, F, mg, dev):
 
 def balloon_oracle(V, F, positions, stats, dev):
     """Phase 8: every step's max|disp| against the direct f64 step (host
-    splu, psd_project=True) run from the same state. Returns the gaps."""
+    splu, psd_project=True) run from the same state. Returns (the gaps,
+    the direct steps' max|disp|)."""
     from surface_multigrid_code_torch.models.balloon import (
         implicit_euler_balloon_direct,
         inflation_force,
@@ -868,7 +977,7 @@ def balloon_oracle(V, F, positions, stats, dev):
     d = balloon_defaults()
     shell, M = balloon_shell(V, F, dev)
     cur, qd = V.copy(), np.zeros(V.size)
-    gaps = []
+    gaps, direct = [], []
     for k in range(BALLOON_STEPS):
         t0 = time.perf_counter()
         fExt = inflation_force(cur, F, d["pressure"])
@@ -879,6 +988,7 @@ def balloon_oracle(V, F, positions, stats, dev):
         d_disp = float(np.abs(pd - V).max())
         gap = abs(mg_disp - d_disp) / d_disp
         gaps.append(gap)
+        direct.append(d_disp)
         log(f"phase 8: step {k}: max|disp| multigrid {mg_disp:.6f}, direct f64 "
             f"{d_disp:.6f}, relative gap {gap:.4f} (limit {ORACLE_GAP[k]}); "
             f"{time.perf_counter() - t0:.1f} s")
@@ -886,31 +996,34 @@ def balloon_oracle(V, F, positions, stats, dev):
             raise RuntimeError(f"balloon step {k}: gap {gap:.4f} to the direct step "
                                f"above {ORACLE_GAP[k]}")
         cur, qd = positions[k], stats[k]["qdot"]
-    return gaps
+    return gaps, direct
 
 
-def balloon_timings(V, F, mg, positions, stats, dev):
-    """Phase 9: ms per balloon step on bunny_15K (f32) from the last state,
-    split per Newton iteration into its phases; the device idle share of a
-    step; K3 and K4 at every shape of the step (bsr_shapes, sign_shapes).
-    Returns (balloon record, {kernel: main-shape times}, K3 records, K4
-    records)."""
+def balloon_timings(V, F, mg, cur, qd, dev):
+    """Phase 9 (a process of its own, see run_child): K3 and K4 at every
+    shape of the step (bsr_shapes, sign_shapes); ms per balloon step on
+    bunny_15K (f32) from the state (cur, qd), split per Newton iteration
+    into its phases; the device busy time and idle share of one profiled
+    step. Returns (balloon record, {kernel: main-shape times}, K3 records,
+    K4 records)."""
     from surface_multigrid_code_torch.models.balloon import (
         PHASES,
         BsrBalloonStepper,
         inflation_force,
     )
+    from surface_multigrid_code_torch.ops.bsr_spmv import fused_bsr_spmv
+    from surface_multigrid_code_torch.ops.psd import ns_sign_apply
+    from surface_multigrid_code_torch.ops.spmv import fused_spmv
 
     d = balloon_defaults()
     shell, M = balloon_shell(V, F, dev)
     stepper = BsrBalloonStepper(shell, M, mg, d["dt"], mg_tolerance=d["mg_tolerance"],
                                 n_newton=d["n_newton"])
-    cur, qd = positions[-1], stats[-1]["qdot"]
     fExt = inflation_force(cur, F, d["pressure"])
 
     # the kernels at the step's shapes, timed before the step's profiler
-    # session of ~11K device events: sessions after it were seen to drop
-    # and carry over events
+    # session of ~11K device events: sessions after it were seen to record
+    # no device event
     hier = stepper.solver.refresh(block_hessian(stepper, cur, dev))
     x9 = torch.as_tensor(np.asarray(cur)[F].reshape(-1, 9), device=dev, dtype=stepper.dtype)
     X = scaled_blocks(shell.face_hess(x9, stepper.abars))
@@ -941,15 +1054,21 @@ def balloon_timings(V, F, mg, positions, stats, dev):
     newton = [{"residuals": r["residuals"], **{p: r[p] * 1e3 for p in PHASES}}
               for r in stepper.last_newton]
     tot = {p: sum(r[p] for r in newton) for p in PHASES}
-    busy, n_dev = device_ms(one_step, 1)
-    idle = 1.0 - busy / step_ms
+    prof = checked_step(one_step, {"spmv_fused_kernel": lambda: fused_spmv.launches,
+                                   "bsr_spmv_kernel": lambda: fused_bsr_spmv.launches,
+                                   "ns_sign_apply": lambda: ns_sign_apply.launches},
+                        "bunny_15K balloon step")
+    busy, n_dev = prof["ms"], prof["events"]
+    idle = 1.0 - busy / prof["wall_ms"]
     log(f"phase 9: bunny_15K balloon step (f32, {stepper.solver.plans[0].n} V, "
         f"{len(stepper.solver.plans)} levels): {walls} ms wall; per step by phase "
         f"(ms, timed run with a sync per phase) {tot}; residuals per Newton solve "
-        f"{[r['residuals'] for r in newton]}; device busy {busy:.3f} ms over {n_dev:.0f} "
-        f"device ops, idle share {idle:.4f}")
+        f"{[r['residuals'] for r in newton]}; profiled step: device busy {busy:.3f} ms over "
+        f"{n_dev:.0f} device ops (hand-kernel launches recorded {prof['recorded']} of "
+        f"{prof['counted']}) in {prof['wall_ms']:.3f} ms, idle share {idle:.4f}")
     bal = {"step_ms": step_ms, "step_walls_ms": walls, "device_ms": busy,
-           "device_ops": n_dev, "idle_share": idle, "phase_ms": tot, "newton": newton}
+           "device_ops": n_dev, "profiled_step_ms": prof["wall_ms"], "idle_share": idle,
+           "phase_ms": tot, "newton": newton}
     return bal, ker, shapes, signs
 
 
@@ -966,18 +1085,23 @@ def bsr_bytes(A, epi, itemsize=4):
     return nbytes, 18 * A.nnz
 
 
-def timed_turns(fns, turns, reps, kernels):
+def timed_turns(fns, turns, reps, kernels, label):
     """Device time (profiler) and per-call time (events) of each of fns,
     one measurement of reps calls per entry of turns. ``kernels`` maps the
-    fns that launch one hand kernel a call to its name (device_ms times
-    them by that kernel's recorded launches). Returns ({name: [device ms
-    per turn]}, {name: [call ms per turn]})."""
-    dev_ms = {w: [] for w in fns}
-    call_ms = {w: [] for w in fns}
+    fns that launch one hand kernel a call to its name: those are timed by
+    that kernel's recorded launches and held to their back-to-back time
+    (checked_kernel_ms). Returns ({name: [device ms per turn]}, {name:
+    [call ms per turn]}, {name: [back-to-back ms per turn]})."""
+    dev_ms, call_ms, burst = ({w: [] for w in fns} for _ in range(3))
     for w in turns:
-        dev_ms[w].append(device_ms(fns[w], reps, kernels.get(w))[0])
+        if w in kernels:
+            d, b = checked_kernel_ms(fns[w], reps, kernels[w], f"{label} ({w})")
+            burst[w].append(b)
+        else:
+            d = device_ms(fns[w], reps)["ms"]
+        dev_ms[w].append(d)
         call_ms[w].append(cuda_ms(fns[w], reps))
-    return dev_ms, call_ms
+    return dev_ms, call_ms, burst
 
 
 def bsr_shapes(hier, dev, reps=20):
@@ -1012,7 +1136,8 @@ def bsr_shapes(hier, dev, reps=20):
             if not out:
                 fns["plain"] = lambda: fused_bsr_spmv_plain(A, x, epi, **kw)
                 turns = ["plain", *turns, "plain"]
-            dev_ms, call_ms = timed_turns(fns, turns, reps, {"kernel": "bsr_spmv_kernel"})
+            dev_ms, call_ms, burst = timed_turns(fns, turns, reps, {"kernel": "bsr_spmv_kernel"},
+                                                 f"bsr_spmv level {lv} {epi}")
             nbytes, flops = bsr_bytes(A, epi)
             bms, by = bound_ms(nbytes, flops)
             counts = A.indptr.diff()
@@ -1020,7 +1145,8 @@ def bsr_shapes(hier, dev, reps=20):
                    "rows": A.n_rows, "blocks": A.nnz, "max_row": int(counts.max()),
                    "row_lanes": A.lanes, "lanes": lanes, "bytes": int(nbytes),
                    "bound_ms": bms, "bound_by": by,
-                   "kernel_turns_ms": dev_ms["kernel"], "library_turns_ms": dev_ms["library"]}
+                   "kernel_turns_ms": dev_ms["kernel"], "library_turns_ms": dev_ms["library"],
+                   "kernel_burst_ms": float(np.median(burst["kernel"]))}
             for w in fns:
                 rec[f"{w}_ms"] = float(np.median(dev_ms[w]))
                 rec[f"{w}_call_ms"] = float(np.median(call_ms[w]))
@@ -1030,6 +1156,7 @@ def bsr_shapes(hier, dev, reps=20):
                 f"({nbytes} B); device kernel {[1e3 * t for t in dev_ms['kernel']]} us, "
                 f"cuSPARSE bsrmv {[1e3 * t for t in dev_ms['library']]} us"
                 + (f", plain {[1e3 * t for t in dev_ms['plain']]} us" if "plain" in fns else "")
+                + f"; back to back {[1e3 * t for t in burst['kernel']]} us"
                 + f"; per call kernel {1e3 * rec['kernel_call_ms']:.2f} us, cuSPARSE "
                 f"{1e3 * rec['library_call_ms']:.2f} us")
     return out
@@ -1054,7 +1181,8 @@ def sign_shapes(X9, dev, reps=20):
     fns["plain"] = lambda: ns_sign_apply_plain(X9)
     first = next(iter(cases))
     turns = ["plain", *cases, *cases, "plain"]
-    dev_ms, call_ms = timed_turns(fns, turns, reps, dict.fromkeys(cases, "ns_sign_apply"))
+    dev_ms, call_ms, burst = timed_turns(fns, turns, reps, dict.fromkeys(cases, "ns_sign_apply"),
+                                         "ns_sign_apply")
     out = []
     for k, X in cases.items():
         d, isz = X.shape[1], X.element_size()
@@ -1065,7 +1193,8 @@ def sign_shapes(X9, dev, reps=20):
         rec = {"shape": k, "blocks": m, "d": d,
                "bytes": 2 * m * d * d * isz, "flops": flops, "bound_ms": bms, "bound_by": by,
                "kernel_turns_ms": dev_ms[k], "kernel_ms": float(np.median(dev_ms[k])),
-               "kernel_call_ms": float(np.median(call_ms[k])), "library_ms": None}
+               "kernel_call_ms": float(np.median(call_ms[k])), "library_ms": None,
+               "kernel_burst_ms": float(np.median(burst[k]))}
         if k == first:
             rec.update(plain_ms=float(np.median(dev_ms["plain"])),
                        plain_call_ms=float(np.median(call_ms["plain"])))
@@ -1073,8 +1202,320 @@ def sign_shapes(X9, dev, reps=20):
         log(f"phase 9: ns_sign_apply {k} ({m} blocks): bound "
             f"{1e3 * bms:.3f} us ({by}); device {[1e3 * t for t in dev_ms[k]]} us"
             + (f", plain {[1e3 * t for t in dev_ms['plain']]} us" if k == first else "")
+            + f"; back to back {[1e3 * t for t in burst[k]]} us"
             + f"; per call {1e3 * rec['kernel_call_ms']:.2f} us")
     return out
+
+
+# ---------------------------------------------------------------- MCF
+
+def mcf_label(name, subdivide):
+    return ("subdivided " if subdivide else "") + name
+
+
+def mcf_mesh(name, subdivide):
+    """Example 05's input: the mesh (midpoint-subdivided when asked) at unit
+    area, and its hierarchy by the example's recipe. Returns (V, F, mg,
+    host seconds of mg_precompute)."""
+    from surface_multigrid_code_torch import mg_precompute
+    from surface_multigrid_code_torch.config import DecimationType
+    from surface_multigrid_code_torch.utils.mesh import normalize_unit_area
+    from surface_multigrid_code_torch.utils.obj_io import read_obj
+    from surface_multigrid_code_torch.utils.paths import mesh_path
+    from surface_multigrid_code_torch.utils.synthetic import midpoint_subdivide
+
+    V, F = read_obj(mesh_path(name))
+    if subdivide:
+        V, F, _ = midpoint_subdivide(V, F)
+    V = normalize_unit_area(V, F)
+    t0 = time.perf_counter()
+    mg = mg_precompute(V, F, ratio=0.25, min_coarsest_nv=500,
+                       dec_type=DecimationType.MIDPOINT, verbose=False)
+    return V, F, mg, time.perf_counter() - t0
+
+
+def mcf_exact(V, F, n_steps, delta=0.01):
+    """The host f64 flow: per step a direct solve of (M - delta L) U =
+    M U_pre (M the barycentric mass of U_pre, L of the original mesh),
+    then normalize_unit_area. Returns U after each step."""
+    from scipy.sparse.linalg import splu
+
+    from surface_multigrid_code_torch.ops.laplacian import cotmatrix, massmatrix
+    from surface_multigrid_code_torch.utils.mesh import normalize_unit_area
+
+    L = cotmatrix(V, F)
+    U, out = V, []
+    for _ in range(n_steps):
+        M = massmatrix(U, F, kind="barycentric")
+        U = normalize_unit_area(splu((M - delta * L).tocsc()).solve(M @ U), F)
+        out.append(U)
+    return out
+
+
+def mcf_path(meshes, dev):
+    """Phase 10: MCFStepper.step (f32 on the card) on each of meshes
+    (MCF_MESHES' form); every step must converge to MCF_TOL within 20
+    cycles, with finite values at unit area, and the flows marked so must
+    stay within MCF_EXACT_GAP of the host f64 flow at every step. Returns
+    ({label: record}, {label: (V, stepper)})."""
+    from surface_multigrid_code_torch import MCFStepper
+    from surface_multigrid_code_torch.utils.mesh import doublearea
+
+    out, steppers = {}, {}
+    for name, subdivide, n_steps, exact in meshes:
+        label = mcf_label(name, subdivide)
+        V, F, mg, t_mg = mcf_mesh(name, subdivide)
+        t0 = time.perf_counter()
+        stepper = MCFStepper(V, F, mg, device=dev)
+        t_setup = time.perf_counter() - t0
+        ref = mcf_exact(V, F, n_steps) if exact else None
+        levels = [lv.V.shape[0] for lv in mg]
+        log(f"phase 10: MCF {label} |V| {V.shape[0]} |F| {F.shape[0]}, levels {levels} "
+            f"(mg_precompute {t_mg:.2f} s, stepper {t_setup:.2f} s), "
+            f"GS colors {[len(g) for g in stepper.solver.groups]}")
+        U, steps = V, []
+        for k in range(n_steps):
+            t0 = time.perf_counter()
+            U, r_his, ok = stepper.step(U)
+            rec = {"cycles": len(r_his) - 1, "final_residual": r_his[-1],
+                   "wall_s": time.perf_counter() - t0}
+            if not ok:
+                raise RuntimeError(f"MCF {label} step {k}: not converged to {MCF_TOL} "
+                                   f"in {stepper.max_iter} cycles: {r_his}")
+            area = doublearea(U, F).sum() / 2.0
+            if U.shape != V.shape or not np.isfinite(U).all() or abs(area - 1.0) > 1e-4:
+                raise RuntimeError(f"MCF {label} step {k}: bad shape, non-finite values "
+                                   f"or area {area}")
+            if ref is not None:
+                rec["max_err_exact"] = float(np.abs(U - ref[k]).max())
+                if not rec["max_err_exact"] <= MCF_EXACT_GAP:
+                    raise RuntimeError(f"MCF {label} step {k}: max|U - U_exact| "
+                                       f"{rec['max_err_exact']:.3e} > {MCF_EXACT_GAP}")
+            steps.append(rec)
+            log(f"phase 10: MCF {label} step {k}: {rec['cycles']} cycles, residuals "
+                f"{r_his[0]:.4e} -> {r_his[-1]:.4e}"
+                + (f", max|U - U_exact| {rec['max_err_exact']:.3e}" if ref is not None else "")
+                + f", wall {rec['wall_s']:.3f} s")
+        out[label] = {"nv": int(V.shape[0]), "nf": int(F.shape[0]), "levels": levels,
+                      "mg_precompute_s": t_mg, "setup_s": t_setup, "steps": steps}
+        steppers[label] = (V, stepper)
+    return out, steppers
+
+
+def check_hierarchy(hier, label, dev, errs, rng, Cs):
+    """K1/K2 against the plain version at a path's own shapes: every
+    level's A, P and PT of the refreshed device hierarchy hier, for each C
+    of Cs, every epilogue, f32 and f64; the largest GS color of every
+    smoothed level in place. Returns the number of cases."""
+    n_cases = 0
+    for lv, level in enumerate(hier.levels):
+        A = host_csr(level.A)
+        ops = {f"A_{lv}": A}
+        if lv:
+            ops.update({f"P_{lv}": host_csr(level.P), f"PT_{lv}": host_csr(level.PT)})
+        for name, S in ops.items():
+            n_cases += check_spmv(S, f"{label} {name}", dev, errs, rng, Cs=Cs)
+        if level.n_groups:
+            g = max(level.groups, key=len).cpu().numpy()
+            n_cases += check_spmv(A, f"{label} A_{lv} largest GS color", dev, errs, rng,
+                                  Cs=Cs, rows=g)
+    return n_cases
+
+
+def check_mcf_kernels(steppers, dev, errs, seed=7):
+    """Phase 10: K1/K2 against the plain version on each MCF stepper's
+    hierarchy refreshed at its rest mesh (check_hierarchy, C = 1 and 3)."""
+    rng = np.random.default_rng(seed)
+    n_cases = 0
+    for label, (V, st) in steppers.items():
+        U = torch.as_tensor(V, dtype=st.dtype, device=dev)
+        hier = st.solver.refresh(st.values(U)[0])
+        n_cases += check_hierarchy(hier, f"MCF {label}", dev, errs, rng, Cs=(1, 3))
+    torch.cuda.synchronize(dev)
+    log(f"phase 10: K1/K2 {n_cases} kernel-vs-plain cases agree on every level and largest "
+        f"GS color of the {len(steppers)} MCF hierarchies; max abs err {errs}")
+
+
+def mcf_timings(dev):
+    """Phase 11 (a process of its own, see run_child): the MCF steppers of
+    MCF_MESHES built anew; K2 at the subdivided ogre's level-0 largest GS
+    color (C = 3, in place; spmv_shapes); then per mesh the ms per MCF step
+    (CUDA events around step_device, median of steps 1-5 of a flow from
+    V), the device busy time of one profiled step and its idle share
+    against that step's own event time, and the split by phase of one more
+    step (a sync per phase). Returns ({label: record}, the K2 shape
+    record)."""
+    from surface_multigrid_code_torch import MCFStepper
+    from surface_multigrid_code_torch.models.mcf import PHASES
+    from surface_multigrid_code_torch.ops.spmv import fused_spmv
+
+    steppers = {}
+    for name, subdivide, _n, _exact in MCF_MESHES:
+        V, F, mg, _t = mcf_mesh(name, subdivide)
+        steppers[mcf_label(name, subdivide)] = (V, MCFStepper(V, F, mg, device=dev))
+    V, st = steppers[mcf_label("ogre", True)]
+    U = torch.as_tensor(V, dtype=st.dtype, device=dev)
+    lv0 = st.solver.refresh(st.values(U)[0]).levels[0]
+    g = max(lv0.groups, key=lambda r: r.shape[0])
+    (k2,) = spmv_shapes([("MCF subdivided ogre A_0 largest GS color C=3, in place", lv0.A, 3,
+                          "axpby", g, lv0.dinv)], dev)
+    out = {}
+    for label, (V, st) in steppers.items():
+        U = torch.as_tensor(V, dtype=st.dtype, device=dev)
+        ms, cycles = [], []
+        for _ in range(MCF_TIMED_STEPS):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            U, _r, k = st.step_device(U)
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            cycles.append(k - 1)
+        step_ms = float(np.median(ms[1:]))
+        prof = checked_step(lambda: st.step_device(U),
+                            {"spmv_fused_kernel": lambda: fused_spmv.launches},
+                            f"MCF {label} step")
+        busy, idle = prof["ms"], 1.0 - prof["ms"] / prof["wall_ms"]
+        st.timed = True
+        n0 = fused_spmv.planes_launches
+        _U, _r, k = st.step_device(U)
+        launches = fused_spmv.planes_launches - n0
+        st.timed = False
+        phases = {p: 1e3 * st.last_phases[p] for p in PHASES}
+        out[label] = {"step_ms": step_ms, "step_event_ms": ms, "cycles": cycles,
+                      "device_ms": busy, "device_ops": prof["events"],
+                      "profiled_step_ms": prof["wall_ms"], "idle_share": idle,
+                      "phase_ms": phases, "k2_launches": {"cycles": k - 1, "launches": launches}}
+        log(f"phase 11: MCF {label} step (f32): {ms} ms (events; median of steps 1-5 "
+            f"{step_ms:.3f}), cycles {cycles}; profiled step: device busy {busy:.3f} ms over "
+            f"{prof['events']:.0f} device ops (K2 launches recorded {prof['recorded']} of "
+            f"{prof['counted']}) in {prof['wall_ms']:.3f} ms, idle share {idle:.4f}; by phase "
+            f"(ms, a sync per phase, {k - 1} cycles, {launches} K2 launches) {phases}")
+    return out, k2
+
+
+@contextlib.contextmanager
+def timed_newton_solver(made):
+    """Within the block, run_balloon builds its BalloonNewtonSolver as a
+    subclass that appends each instance to ``made``, with ``setup_s`` (host
+    seconds of its construction, closed by a device sync) and ``ready``
+    (the host clock when it was done)."""
+    from surface_multigrid_code_torch.models import balloon
+
+    base = balloon.BalloonNewtonSolver
+
+    class Timed(base):
+        def __init__(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            super().__init__(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.ready = time.perf_counter()
+            self.setup_s = self.ready - t0
+            made.append(self)
+
+    balloon.BalloonNewtonSolver = Timed
+    try:
+        yield
+    finally:
+        balloon.BalloonNewtonSolver = base
+
+
+def scalar_balloon(V, F, direct_disp, dev):
+    """Phase 12: one run_balloon(solver="scalar") step on bunny_15K at the
+    defaults from rest (the 3-expanded hierarchy of mg_precompute_block,
+    multicolor GS, f32 on the card), its max|disp| held to the direct f64
+    step from rest within ORACLE_GAP[0]; the solver's set-up and the step
+    timed on the host clock (timed_newton_solver; the step from the
+    solver's end to the yielded positions). Returns (its record, the
+    step's BalloonNewtonSolver)."""
+    from surface_multigrid_code_torch import mg_precompute_block
+    from surface_multigrid_code_torch.models.balloon import run_balloon
+
+    t0 = time.perf_counter()
+    mg = mg_precompute_block(V, F, verbose=False)
+    t_mg = time.perf_counter() - t0
+    stats, made = [], []
+    with timed_newton_solver(made):
+        (pos,) = list(run_balloon(V, F, n_steps=1, mg=mg, solver="scalar", device=dev,
+                                  stats=stats, verbose=False))
+    step_s = time.perf_counter() - made[0].ready
+    ns = made[0]
+    disp = float(np.abs(pos - V).max())
+    gap = abs(disp - direct_disp) / direct_disp
+    newton = stats[0]["newton"]
+    log(f"phase 12: scalar balloon bunny_15K ({3 * V.shape[0]} DOFs, {ns.pattern.nnz} nnz, "
+        f"levels {[lv.P_full.shape[1] for lv in mg[1:]]} coarse DOFs, GS colors "
+        f"{[len(g) for g in ns.solver.groups]}; mg_precompute_block {t_mg:.2f} s): max|disp| "
+        f"{disp:.6f}, direct f64 {direct_disp:.6f}, relative gap {gap:.4f} (limit "
+        f"{ORACLE_GAP[0]}); rejects {stats[0]['last_rejected']}, residuals per Newton solve "
+        f"{[r['residuals'] for r in newton]}, unconverged solves "
+        f"{sum(not r['converged'] for r in newton)}, alphas "
+        f"{sorted(set(r['alpha'] for r in newton))}; set-up {ns.setup_s:.3f} s, step "
+        f"{step_s:.3f} s")
+    if pos.shape != V.shape or not np.isfinite(pos).all():
+        raise RuntimeError("scalar balloon step: bad shape or non-finite positions")
+    if not gap <= ORACLE_GAP[0]:
+        raise RuntimeError(f"scalar balloon step: gap {gap:.4f} to the direct step above "
+                           f"{ORACLE_GAP[0]}")
+    return {"max_disp": disp, "direct_max_disp": direct_disp, "oracle_gap": gap,
+            "rejects": stats[0]["last_rejected"],
+            "residuals": [r["residuals"] for r in newton], "mg_precompute_block_s": t_mg,
+            "setup_s": ns.setup_s, "step_s": step_s}, ns
+
+
+def check_scalar_kernels(ns, V, dev, errs, seed=8):
+    """Phase 12: K1 against the plain version on the scalar balloon's
+    3-expanded hierarchy refreshed at the rest pose (check_hierarchy, C =
+    1, the path's)."""
+    hier = ns.solver.refresh(ns.hessian_values(V.reshape(-1), balloon_defaults()["dt"]))
+    n_cases = check_hierarchy(hier, "scalar balloon", dev, errs, np.random.default_rng(seed),
+                              Cs=(1,))
+    torch.cuda.synchronize(dev)
+    log(f"phase 12: K1 {n_cases} kernel-vs-plain cases agree on every level and largest GS "
+        f"color of the scalar balloon's hierarchy; max abs err {errs}")
+
+
+def run_child(phase, state):
+    """Run a timing phase in a process of its own (``python3 chip_smoke.py
+    --child phase``, state pickled on its standard input), so that no
+    earlier profiler session of this process shares its profiler: after a
+    session of thousands of device events, later sessions of the same
+    process were seen to record none or to read a kernel at half its
+    time. Relays its log; returns its result (a JSON line tagged
+    CHILD_RESULT)."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", phase],
+                          input=pickle.dumps(state), capture_output=True, timeout=900)
+    result = None
+    for line in proc.stdout.decode().splitlines():
+        if line.startswith(CHILD_RESULT):
+            result = json.loads(line[len(CHILD_RESULT):])
+        else:
+            log(line)
+    sys.stderr.write(proc.stderr.decode())
+    if proc.returncode != 0 or result is None:
+        raise RuntimeError(f"the {phase} process exited {proc.returncode}")
+    return result
+
+
+def child(phase) -> int:
+    """The body of ``--child phase``: phase 11 ("mcf") or phase 9
+    ("balloon", from the state on standard input)."""
+    state = pickle.load(sys.stdin.buffer)
+    dev = torch.device("cuda", 0)
+    from surface_multigrid_code_torch import _build, mg_precompute
+    from surface_multigrid_code_torch.utils.obj_io import read_obj
+    from surface_multigrid_code_torch.utils.paths import mesh_path
+
+    _build.load_library()
+    if phase == "mcf":
+        result = mcf_timings(dev)
+    else:
+        Vb, Fb = read_obj(mesh_path(BALLOON_MESH))
+        result = balloon_timings(Vb, Fb, mg_precompute(Vb, Fb, verbose=False), state["pos"],
+                                 state["qdot"], dev)
+    print(CHILD_RESULT + json.dumps(result), flush=True)
+    return 0
 
 
 # ---------------------------------------------------------------- main
@@ -1207,19 +1648,39 @@ def main() -> int:
                 "bound": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "library": rec["library_ms"]}
 
+    # phase 10: MCF (example 05), counted, then K1/K2 at its shapes; phase
+    # 11 times it in a process of its own
+    reset_counts()
+    mcf, mcf_steppers = mcf_path(MCF_MESHES, dev)
+    mcf_counts = read_counts("phase 10", ("spmv_fused_planes",))
+    check_mcf_kernels(mcf_steppers, dev, errs)
+    del mcf_steppers
+    mcf_t, k2_mcf = run_child("mcf", {})
+    shapes.append(k2_mcf)
+
     # phase 7: the balloon path, counted
     reset_counts()
     positions, stats, bsum = balloon_path(Vb, Fb, mg_b, dev)
     balloon = read_counts("phase 7", ("spmv_fused_planes", "bsr_spmv", "ns_sign_apply"))
-    launches = {name: static[name] + balloon[name] for name in counters}
     k4_errs, edge = check_sign_kernel(Vb, Fb, positions[-1], dev)
     errs.update(k4_errs)
 
     # phase 8: the balloon against the direct f64 oracle
-    bsum["oracle_gap"] = balloon_oracle(Vb, Fb, positions, stats, dev)
+    bsum["oracle_gap"], direct = balloon_oracle(Vb, Fb, positions, stats, dev)
 
-    # phase 9: balloon and K3/K4 timing
-    bal, bker, bshapes, signs = balloon_timings(Vb, Fb, mg_b, positions, stats, dev)
+    # phase 12: the balloon's scalar cross-check, counted, then K1 at its shapes
+    reset_counts()
+    scalar, ns = scalar_balloon(Vb, Fb, direct[0], dev)
+    scalar["launches"] = read_counts("phase 12", ("spmv_fused", "ns_sign_apply"))
+    check_scalar_kernels(ns, Vb, dev, errs)
+    bsum["scalar"] = scalar
+    del ns
+    launches = {name: static[name] + mcf_counts[name] + balloon[name]
+                + scalar["launches"][name] for name in counters}
+
+    # phase 9: balloon and K3/K4 timing, in a process of its own
+    bal, bker, bshapes, signs = run_child("balloon", {"pos": positions[-1],
+                                                      "qdot": stats[-1]["qdot"]})
     ker.update(bker)
 
     log(card)
@@ -1228,6 +1689,9 @@ def main() -> int:
     log(json.dumps({"balloon": {**bsum, **bal}, "mesh": BALLOON_MESH, "dtype": "float32",
                     "launches": balloon}))
     log(json.dumps({"bsr_shapes": bshapes, "mesh": BALLOON_MESH, "dtype": "float32"}))
+    log(json.dumps({"mcf": {label: {**rec, **mcf_t[label]} for label, rec in mcf.items()},
+                    "dtype": "float32", "tol": MCF_TOL, "exact_gap": MCF_EXACT_GAP,
+                    "launches": mcf_counts, "k2_color_shape": k2_mcf}))
     log(json.dumps({"sign_shapes": signs, "mesh": BALLOON_MESH, "ptxas": sign_regs,
                     "edge_eigs": {"eigenvalues": EDGE_EIGS, "least_eig_and_distance": edge}}))
     # ms / plain_ms / library_ms: device time per call (profiler, L2 warm:
@@ -1235,7 +1699,8 @@ def main() -> int:
     # K2), the bunny_15K level-0 block Hessian (K3) and its 31,604 face
     # blocks (K4); call_ms / plain_call_ms: per call between CUDA events over
     # back-to-back calls, host included; bound_ms: from this run's shapes at
-    # the H100's HBM and f32 peaks; launches: phases 4-5 and 7 together
+    # the H100's HBM and f32 peaks; launches: the counted paths together
+    # (phases 4-5, 10, 7 and 12)
     sources = {**{n: (SOURCE, rep) for n, rep in KERNELS.items()}, **BLOCK_KERNELS}
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -1253,4 +1718,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child"]:
+        sys.exit(child(sys.argv[2]))
     sys.exit(main())

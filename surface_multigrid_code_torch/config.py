@@ -70,6 +70,6 @@ class SolveConfig:
     # effect here: the port has one V-cycle flow, with every update fused
     # into one SpMV kernel call on exact (unpadded) sizes.
     tiled_vcycle: bool = True
-    # Chebyshev lam_max power-iteration count of the refreshed solvers,
-    # which are not ported yet; kept for the same reason as tiled_vcycle.
+    # Chebyshev lam_max power-iteration count of the refreshed solvers
+    # (RefreshableMGSolver, BsrRefreshableSolver).
     lam_power_iters: int = 12

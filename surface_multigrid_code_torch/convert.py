@@ -20,6 +20,11 @@ that is exactly zero, which contributes nothing to a product. The padded
 color groups are de-duplicated, which makes the JAX package's per-row
 ``group_scale`` unnecessary.
 
+``mg_from_jax`` turns the JAX package's ``MGLevel`` records (numpy arrays
+and scipy matrices; no JAX type) into the port's, so both packages run on
+one SSP hierarchy; a refreshed hierarchy (the leaves of the JAX
+``RefreshableMGSolver._refresh_impl``) goes through ``hierarchy_from_jax``.
+
 ``bsr_hierarchy_from_jax`` does the same for a ``solver.bsr.BsrHierarchy``
 (the balloon's block multigrid), and ``shell_state_from_jax`` copies a JAX
 ``ShellEnergy``'s rest state (``abars``, ``bbars``) into a port
@@ -33,10 +38,27 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from surface_multigrid_code_torch.config import DecimationType
 from surface_multigrid_code_torch.models.shell import ShellEnergy
 from surface_multigrid_code_torch.ops.sparse import BSRMatrix, CSRMatrix, csr_from_scipy
 from surface_multigrid_code_torch.solver.bsr import BsrHierarchy, BsrLevel
+from surface_multigrid_code_torch.solver.hierarchy import MGLevel
 from surface_multigrid_code_torch.solver.vcycle import DeviceHierarchy, DeviceLevel
+
+
+def mg_from_jax(levels) -> list[MGLevel]:
+    """The port's MGLevel list from the JAX package's ``MGLevel`` records:
+    the same arrays and matrices (copied), the decimation type as the
+    port's ``DecimationType``."""
+    out = []
+    for lv in levels:
+        copy = (lambda a: None if a is None else a.copy())
+        out.append(MGLevel(
+            V=np.array(lv.V), F=np.array(lv.F), P_full=copy(lv.P_full), P=copy(lv.P),
+            PT=copy(lv.PT), A=copy(lv.A), A_diag=copy(lv.A_diag),
+            dec_type=None if lv.dec_type is None else DecimationType(int(lv.dec_type)),
+            ratio=lv.ratio))
+    return out
 
 
 def ell_to_csr(indices: np.ndarray, data: np.ndarray, n_cols: int,

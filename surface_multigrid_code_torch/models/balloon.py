@@ -17,7 +17,12 @@ pressure along vertex normals), M = 1000 * 3-expanded lumped mass.
 ``run_balloon(solver="bsr")`` drives ``BsrBalloonStepper``: the Hessian
 lives as 3x3 blocks on the vertex graph and every solve runs the BSR
 multigrid of ``solver/bsr.py`` (kernels K2, K3; the projection runs K4).
-``implicit_euler_balloon_direct`` is the host sparse-LU oracle.
+``run_balloon(solver="scalar")`` is the cross-check on the reference's
+own data layout: ``implicit_euler_mg_balloon`` solves the 3-expanded
+scalar system on the block hierarchy (``mg_precompute_block``) with
+``BalloonNewtonSolver`` (``RefreshableMGSolver``, multicolor GS; K1 for
+every SpMV, K4 in the projection). ``implicit_euler_balloon_direct`` is
+the host sparse-LU oracle.
 """
 
 from __future__ import annotations
@@ -42,8 +47,12 @@ from surface_multigrid_code_torch.models.shell import (
 from surface_multigrid_code_torch.ops.laplacian import massmatrix
 from surface_multigrid_code_torch.solver.bsr import BsrRefreshableSolver, bsr_solve_loop
 from surface_multigrid_code_torch.solver.galerkin import _ellize_segments
-from surface_multigrid_code_torch.solver.hierarchy import extend_hierarchy, mg_precompute
-from surface_multigrid_code_torch.solver.refresh import csr_slot_map
+from surface_multigrid_code_torch.solver.hierarchy import (
+    extend_hierarchy,
+    mg_precompute,
+    mg_precompute_block,
+)
+from surface_multigrid_code_torch.solver.refresh import RefreshableMGSolver, csr_slot_map
 from surface_multigrid_code_torch.utils.device import resolve_device
 
 PHASES = ("assembly", "psd", "refresh", "vcycles", "line_search")
@@ -68,6 +77,49 @@ def vertex_normals(V, F) -> np.ndarray:
     nrm = np.linalg.norm(N, axis=1, keepdims=True)
     nrm[nrm == 0] = 1.0
     return N / nrm
+
+
+def face_hessians(shell: ShellEnergy, x_flat, x9, abars, bend) -> list[torch.Tensor]:
+    """The shell's per-face Hessians at x_flat ([3nv]; x9 its [nf, 9]
+    corner states): [nf, 9, 9] stretch, and [nf, 18, 18] bending when
+    ``bend`` (``shell.bend_state``) is set."""
+    H = [shell.face_hess(x9, abars)]
+    if bend is not None:
+        opp, mask, bbars = bend
+        x18 = torch.cat([x9, x_flat.reshape(-1, 3)[opp].reshape(x9.shape[0], 9)], dim=1)
+        H.append(shell.face_hess_bend(x18, abars, bbars, mask))
+    return H
+
+
+class GatherAssembly:
+    """Gather-only assembly of per-face entries into the nnz values of a
+    CSR pattern, on a device. For every nnz slot, the padded list of the
+    entries that land in it (at most w_cap, ``_ellize_segments``) is summed
+    in a fixed order; longer segments go to a sorted tail added by
+    ``index_add_``. ``rows``/``cols`` place the entries in the order they
+    are passed; an entry is a scalar or a block (any trailing shape)."""
+
+    def __init__(self, pattern: sp.csr_matrix, rows, cols, w_cap: int, device):
+        slots = csr_slot_map(pattern, rows, cols)
+        order = np.argsort(slots, kind="stable")
+        gi, _gw, ti, _tw, ts = _ellize_segments(
+            slots[order], order, np.ones(order.shape[0]), order.shape[0], pattern.nnz,
+            W_cap=w_cap)
+        n = pattern.shape[0]
+        diag = csr_slot_map(pattern, np.arange(n), np.arange(n))
+        self.gather, self.tail_idx, self.tail_seg, self.diag_slots = (
+            torch.as_tensor(np.asarray(a), dtype=torch.int64, device=device)
+            for a in (gi, ti, ts, diag))
+
+    def __call__(self, e: torch.Tensor, diag: torch.Tensor) -> torch.Tensor:
+        """The pattern's values [nnz, *E]: the entries e [k, *E] summed into
+        their slots, plus diag [n, *E] on the diagonal slots."""
+        epad = torch.cat([e, e.new_zeros((1, *e.shape[1:]))])
+        vals = epad[self.gather].sum(dim=1)
+        if self.tail_idx.shape[0]:
+            vals = vals + torch.zeros_like(vals).index_add_(
+                0, self.tail_seg, epad[self.tail_idx])
+        return vals.index_add_(0, self.diag_slots, diag)
 
 
 class BsrBalloonStepper:
@@ -145,24 +197,11 @@ class BsrBalloonStepper:
         self.cfg = self.solver.cfg
         self.nnz = self.pattern.nnz
 
-        # Gather-only assembly: for every pattern nnz, the (padded) list of
-        # per-face block entries that land in it, summed in a fixed order
-        # (off-diagonal vertex pairs get two face contributions on a closed
-        # manifold, so W = 4 covers most slots; the longer diagonal
-        # segments go to a sorted tail).
-        slots = csr_slot_map(self.pattern, rows, cols)
-        order = np.argsort(slots, kind="stable")
-        gi, _gw, ti, _tw, ts = _ellize_segments(
-            slots[order], order, np.ones(order.shape[0]),
-            order.shape[0], self.nnz, W_cap=asm_w_cap,
-        )
-        diag_slots = csr_slot_map(self.pattern, np.arange(nv), np.arange(nv))
+        # off-diagonal vertex pairs get two face contributions on a closed
+        # manifold, so W = 4 covers most slots
+        self.asm = GatherAssembly(self.pattern, rows, cols, asm_w_cap, device)
         Md = np.asarray(M.diagonal())
         t = (lambda a, dt_: torch.as_tensor(np.asarray(a)).to(device=device, dtype=dt_))
-        self.asm_gather = t(gi, torch.int64)
-        self.asm_tail_idx = t(ti, torch.int64)
-        self.asm_tail_seg = t(ts, torch.int64)
-        self.diag_slots = t(diag_slots, torch.int64)
         self.Mv = t(Md[0::3], dtype)
         self.Mdiag = t(Md, dtype)
         self.F = t(F, torch.int64)
@@ -181,12 +220,7 @@ class BsrBalloonStepper:
 
     def _face_blocks(self, x_flat, x9):
         """Per-face Hessians: [nf, 9, 9] stretch (+ [nf, 18, 18] bending)."""
-        H = [self.shell.face_hess(x9, self.abars)]
-        if self.bend is not None:
-            opp, mask, bbars = self.bend
-            x18 = torch.cat([x9, x_flat.reshape(-1, 3)[opp].reshape(self.nf, 9)], dim=1)
-            H.append(self.shell.face_hess_bend(x18, self.abars, bbars, mask))
-        return H
+        return face_hessians(self.shell, x_flat, x9, self.abars, self.bend)
 
     def _assemble(self, H):
         """dt^2 K + M as [nnz_v, 3, 3] blocks (gather-only assembly)."""
@@ -195,14 +229,8 @@ class BsrBalloonStepper:
         if len(H) > 1:
             ent.append(H[1].reshape(nf, 6, 3, 6, 3).permute(0, 1, 3, 2, 4)
                        .reshape(nf * 36, 3, 3))
-        e = (self.dt * self.dt) * torch.cat(ent)
-        epad = torch.cat([e, e.new_zeros((1, 3, 3))])
-        vals = epad[self.asm_gather].sum(dim=1)
-        if self.asm_tail_idx.shape[0]:
-            vals = vals + torch.zeros_like(vals).index_add_(
-                0, self.asm_tail_seg, epad[self.asm_tail_idx])
-        eye3 = torch.eye(3, dtype=vals.dtype, device=vals.device)
-        return vals.index_add_(0, self.diag_slots, self.Mv[:, None, None] * eye3)
+        eye3 = torch.eye(3, dtype=self.Mv.dtype, device=self.Mv.device)
+        return self.asm((self.dt * self.dt) * torch.cat(ent), self.Mv[:, None, None] * eye3)
 
     def _clock(self):
         """Host clock, after a device sync when the stepper is timed."""
@@ -323,6 +351,119 @@ class BsrBalloonStepper:
                 qdot.cpu().to(torch.float64).numpy())
 
 
+class BalloonNewtonSolver:
+    """Per-Newton-iteration Hessian refresh on the fixed 3-expanded
+    (scalar) hierarchy, on the shell's device.
+
+    The reference re-runs the full multigrid precompute every Newton
+    iteration (implicit_euler_mg_balloon.h:75); here the symbolic structure
+    is cached once, and each iteration gathers the new per-face Hessian
+    entries into the finest nnz values (``hessian_values``) and refreshes
+    the hierarchy through ``solver.solve``. dtype: float32 on an
+    accelerator, float64 on the CPU unless given; the Hessian is computed
+    in it and PSD-projected per face (``psd_project_blocks``: the raw
+    shell Hessians go indefinite under large deformation, and the
+    SPD-assuming multigrid then diverges). cfg: multicolor GS unless given
+    (the reference's smoother family; the interleaved block patterns need
+    about 21 colors).
+    """
+
+    def __init__(self, shell: ShellEnergy, M: sp.csr_matrix, mg, cfg=None,
+                 dtype: torch.dtype | None = None):
+        device = shell.device
+        if dtype is None:
+            dtype = torch.float64 if device.type == "cpu" else torch.float32
+        self.device, self.dtype = device, dtype
+        self.shell = shell
+        cfg = cfg or SolveConfig(smoother=SmootherType.MULTICOLOR_GS)
+        n3 = M.shape[0]
+        rows, cols = shell._rows, shell._cols
+        if shell.bending:
+            rows = np.concatenate([rows, shell._rows_b])
+            cols = np.concatenate([cols, shell._cols_b])
+        K_pat = sp.coo_matrix((np.ones(rows.shape[0]), (rows, cols)), shape=(n3, n3)).tocsr()
+        pattern = (K_pat + M).tocsr()
+        pattern.sum_duplicates()
+        self.pattern = pattern
+        # the rare long segments are the bending diagonals
+        self.asm = GatherAssembly(pattern, rows, cols, 24, device)
+        self.Mdiag = torch.as_tensor(np.asarray(M.diagonal())).to(device=device, dtype=dtype)
+        self.F = torch.as_tensor(shell.F, dtype=torch.int64, device=device)
+        self.abars = shell.abars.to(dtype)
+        self.bend = shell.bend_state(dtype)
+        self.solver = RefreshableMGSolver(mg, pattern, cfg=cfg, dtype=dtype, device=device)
+        self.last_newton: list[dict] = []
+
+    def hessian_values(self, x_flat, dt: float) -> torch.Tensor:
+        """Finest nnz values of H = M + dt^2 K at the positions x_flat, on
+        the device: the per-face Hessian blocks (stretching 9x9, bending
+        18x18), PSD-projected, gathered into the pattern's nnz slots."""
+        xv = torch.as_tensor(np.asarray(x_flat, dtype=np.float64)).to(
+            device=self.device, dtype=self.dtype).reshape(-1, 3)
+        x9 = xv[self.F].reshape(-1, 9)
+        H = face_hessians(self.shell, xv.reshape(-1), x9, self.abars, self.bend)
+        e = torch.cat([psd_project_blocks(h).reshape(-1) for h in H])
+        return self.asm((dt * dt) * e, self.Mdiag)
+
+
+def implicit_euler_mg_balloon(
+    shell: ShellEnergy,
+    M: sp.csr_matrix,
+    curPos: np.ndarray,
+    qdot: np.ndarray,
+    fExt: np.ndarray,
+    dt: float,
+    mg,
+    mg_tolerance: float = 2e-1,
+    n_newton: int = 10,
+    cfg: SolveConfig | None = None,
+    newton_solver: BalloonNewtonSolver | None = None,
+    verbose: bool = True,
+):
+    """One implicit Euler step on the 3-expanded scalar system (reference
+    sim_utils/implicit_euler_mg_balloon.h:18-124), host-orchestrated: the
+    gradient, the line search and the multigrid solve's input and output
+    cross to the host every Newton iteration. Mutates nothing; returns
+    (curPos, qdot, newton_solver). ``newton_solver.last_newton`` holds one
+    record per iteration (residuals recorded, converged, alpha, found)."""
+    if newton_solver is None:
+        newton_solver = BalloonNewtonSolver(shell, M, mg, cfg=cfg)
+    qdot0 = qdot.copy()
+    curPos0 = curPos.copy()
+    qdot = qdot.copy()
+    curPos = curPos.copy()
+
+    def total_energy(tmp_qdot):
+        Ek = 0.5 * (tmp_qdot - qdot0) @ (M @ (tmp_qdot - qdot0))
+        newPos = curPos0 + dt * tmp_qdot.reshape(-1, 3)
+        return float(newPos.reshape(-1) @ fExt) + Ek + shell.energy(newPos.reshape(-1))
+
+    newton_solver.last_newton = []
+    for it in range(n_newton):
+        G = shell.gradient(curPos.reshape(-1))
+        vals = newton_solver.hessian_values(curPos.reshape(-1), dt)
+        g = -(M @ (qdot - qdot0) + dt * G + dt * fExt)
+        dx, r_his, ok = newton_solver.solver.solve(vals, g, tolerance=mg_tolerance, max_iter=20)
+        if verbose:
+            print(f"  newton {it}: g.dx = {g @ dx:.6e}, cycles {len(r_his)}")
+        # backtracking line search (reference :80-114)
+        alpha, p, c = 1.0, 0.5, 1e-8
+        s = total_energy(qdot) + c * (g @ dx)
+        found = False
+        while alpha > 1e-8:
+            if total_energy(qdot + alpha * dx) <= s:
+                qdot = qdot + alpha * dx
+                found = True
+                break
+            alpha *= p
+        if verbose:
+            print(f"  alpha: {alpha}")
+        newton_solver.last_newton.append(
+            {"residuals": len(r_his), "converged": ok, "alpha": alpha, "found": found})
+        curPos = curPos0 + dt * qdot.reshape(-1, 3)
+    return curPos, qdot, newton_solver
+
+
 def implicit_euler_balloon_direct(
     shell: ShellEnergy,
     M: sp.csr_matrix,
@@ -400,17 +541,16 @@ def run_balloon(
     """Reference main.cpp:154-201 time loop: multigrid hierarchy on the rest
     mesh, inflation force recomputed per outer step. Yields curPos per step.
 
-    solver="bsr" (the only one ported): `BsrBalloonStepper` on `device`;
-    `mg` must be a SCALAR hierarchy (`mg_precompute`). With `stats` (a
-    list), one record per step is appended: the step's `last_rejected`,
-    its per-Newton records (`last_newton`) and the new qdot.
+    solver="bsr" (default): `BsrBalloonStepper` on `device`; `mg` must be
+    a SCALAR hierarchy (`mg_precompute`), extended to `coarsest_nv`.
+    solver="scalar": the host-orchestrated `implicit_euler_mg_balloon` on
+    the 3-expanded block hierarchy (`mg_precompute_block`) with multicolor
+    GS, the reference's own data layout, kept as the cross-check path
+    (`coarsest_nv` does not apply). With `stats` (a list), one record per
+    step is appended: the step's rejected Newton iterations
+    (`last_rejected`), its per-Newton records and the new qdot.
     """
-    if solver == "scalar":
-        raise NotImplementedError(
-            "solver='scalar' (BalloonNewtonSolver, implicit_euler_mg_balloon) "
-            "is not ported yet: it needs RefreshableMGSolver, which lands with "
-            "MCF (ROADMAP queue 1 item 6)")
-    if solver != "bsr":
+    if solver not in ("bsr", "scalar"):
         raise ValueError(f"unknown solver {solver!r} (want 'bsr'|'scalar')")
     device = resolve_device(device)
     V = np.asarray(V, dtype=np.float64)
@@ -421,16 +561,28 @@ def run_balloon(
 
     curPos = V.copy()
     qdot = np.zeros(3 * V.shape[0])
-    if mg is None:
-        mg = mg_precompute(V, F, verbose=verbose)
-    stepper = BsrBalloonStepper(shell, M, mg, dt, mg_tolerance=mg_tolerance,
-                                n_newton=n_newton, dtype=dtype, coarsest_nv=coarsest_nv)
+    if solver == "scalar":
+        if mg is None:
+            mg = mg_precompute_block(V, F, verbose=verbose)
+        ns = BalloonNewtonSolver(shell, M, mg, dtype=dtype)
+    else:
+        if mg is None:
+            mg = mg_precompute(V, F, verbose=verbose)
+        stepper = BsrBalloonStepper(shell, M, mg, dt, mg_tolerance=mg_tolerance,
+                                    n_newton=n_newton, dtype=dtype, coarsest_nv=coarsest_nv)
     for step in range(n_steps):
         fExt = inflation_force(curPos, F, pressure)
-        curPos, qdot = stepper.step(curPos, qdot, fExt)
+        if solver == "scalar":
+            curPos, qdot, _ = implicit_euler_mg_balloon(
+                shell, M, curPos, qdot, fExt, dt, mg, mg_tolerance=mg_tolerance,
+                n_newton=n_newton, newton_solver=ns, verbose=verbose)
+            newton = ns.last_newton
+            rejected = sum(not r["found"] for r in newton)
+        else:
+            curPos, qdot = stepper.step(curPos, qdot, fExt)
+            newton, rejected = stepper.last_newton, stepper.last_rejected
         if stats is not None:
-            stats.append({"last_rejected": stepper.last_rejected,
-                          "newton": stepper.last_newton, "qdot": qdot})
+            stats.append({"last_rejected": rejected, "newton": newton, "qdot": qdot})
         if verbose:
             print(f"step {step}: max |disp| = {np.abs(curPos - V).max():.4f}")
         yield curPos

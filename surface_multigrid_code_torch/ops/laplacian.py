@@ -1,7 +1,8 @@
-"""Cotangent Laplacian and mass-matrix assembly (ports the numpy/scipy half of ``surface_multigrid_code_tpu/ops/laplacian.py``).
+"""Cotangent Laplacian and mass-matrix assembly (ports ``surface_multigrid_code_tpu/ops/laplacian.py``).
 
-Host code returning scipy.sparse CSR, used by precompute. The device
-twins of the JAX package (``*_jax``) serve the MCF refresh and come with it.
+Host code returning scipy.sparse CSR, used by precompute, and
+``massmatrix_barycentric_diag`` on tensors, the mass of MCF's device step
+(the JAX package's ``massmatrix_barycentric_diag_jax``).
 
 Conventions follow libigl as used by the reference examples:
 - `cotmatrix` is negative semi-definite (diagonal negative); the Poisson
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 import scipy.sparse as sp
+import torch
 
 
 def _squared_edge_lengths(V: np.ndarray, F: np.ndarray) -> np.ndarray:
@@ -83,6 +85,17 @@ def massmatrix_barycentric(V: np.ndarray, F: np.ndarray) -> sp.csr_matrix:
     for c in range(3):
         np.add.at(diag, F[:, c], dblA / 6.0)
     return sp.diags(diag).tocsr()
+
+
+def massmatrix_barycentric_diag(V: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
+    """Diagonal of the barycentric mass matrix on V's device: each corner
+    gets dblA / 6 (half its face's area / 3), one ``index_add_`` per corner."""
+    P0, P1, P2 = V[F[:, 0]], V[F[:, 1]], V[F[:, 2]]
+    dblA = torch.linalg.norm(torch.cross(P1 - P0, P2 - P0, dim=1), dim=1)
+    diag = V.new_zeros(V.shape[0])
+    for c in range(3):
+        diag.index_add_(0, F[:, c], dblA / 6.0)
+    return diag
 
 
 def massmatrix(V: np.ndarray, F: np.ndarray, kind: str = "voronoi") -> sp.csr_matrix:

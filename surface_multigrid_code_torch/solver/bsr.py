@@ -45,10 +45,11 @@ from surface_multigrid_code_torch.ops.sparse import (
 )
 from surface_multigrid_code_torch.ops.spmv import fused_spmv
 from surface_multigrid_code_torch.solver.galerkin import (
+    DevicePlanLevel,
     GalerkinPlan,
-    LevelPlan,
     build_galerkin_plan,
-    plan_pattern,
+    device_plan,
+    refresh_values,
 )
 from surface_multigrid_code_torch.utils.device import resolve_device
 
@@ -192,61 +193,12 @@ def _bsr_device_lam_max(A: BSRMatrix, diag, iters: int = 12):
     return 1.1 * lam
 
 
-class DevicePlanLevel(nn.Module):
-    """One ``LevelPlan`` on a device, with its level's CSR pattern."""
-
-    def __init__(self, pl_: LevelPlan, pattern: sp.csr_matrix, device,
-                 dtype: torch.dtype):
-        super().__init__()
-        t = (lambda a, dt: torch.as_tensor(np.asarray(a)).to(device=device, dtype=dt))
-        self.register_buffer("gat_idx", t(pl_.gat_idx, torch.int64))
-        self.register_buffer("gat_w", t(pl_.gat_w, dtype))
-        self.register_buffer("tail_idx", t(pl_.tail_idx, torch.int64))
-        self.register_buffer("tail_w", t(pl_.tail_w, dtype))
-        self.register_buffer("tail_seg", t(pl_.tail_seg, torch.int64))
-        self.register_buffer("diag_idx", t(pl_.diag_idx, torch.int64))
-        self.register_buffer("indptr", t(pattern.indptr, torch.int32))
-        self.register_buffer("indices", t(pattern.indices, torch.int32))
-        self.nnz_out = int(pl_.nnz_out)
-        if pattern.nnz != self.nnz_out:
-            raise ValueError("plan and pattern disagree on the nnz count")
-
-    @property
-    def n(self) -> int:
-        return self.indptr.shape[0] - 1
-
-
-def device_plan(plan: GalerkinPlan, pattern0: sp.csr_matrix, device,
-                dtype: torch.dtype) -> list[DevicePlanLevel]:
-    """All levels of a plan on a device, finest first (level 0 has no
-    triple expansion; its pattern is the one the plan was built on)."""
-    out = [DevicePlanLevel(plan.lvl0, pattern0, device, dtype)]
-    out += [DevicePlanLevel(pl_, plan_pattern(pl_), device, dtype) for pl_ in plan.levels]
-    return out
-
-
 def refresh_block_values(plans: list[DevicePlanLevel], B0_vals: torch.Tensor):
-    """All-level Galerkin refresh where values are [nnz, 3, 3] blocks on the
-    VERTEX pattern and P weights are scalars: vals_out[k] = sum w_a w_c
-    B_in[b], as one gather-multiply-sum per level plus an ``index_add_``
-    of the long-segment tail. Returns per level (blocks [nnz, 3, 3] in the
-    level's canonical CSR order, diag3 [n, 3]), finest first."""
-    vals = B0_vals
-    out = []
-
-    def diag3(pl_, v):
-        return torch.diagonal(v[pl_.diag_idx], dim1=1, dim2=2)
-
-    out.append((vals, diag3(plans[0], vals)))
-    for pl_ in plans[1:]:
-        vpad = torch.cat([vals, vals.new_zeros((1, 3, 3))])
-        vals = (pl_.gat_w[..., None, None] * vpad[pl_.gat_idx]).sum(dim=1)
-        if pl_.tail_idx.shape[0]:
-            tail = torch.zeros_like(vals).index_add_(
-                0, pl_.tail_seg, pl_.tail_w[:, None, None] * vpad[pl_.tail_idx])
-            vals = vals + tail
-        out.append((vals, diag3(pl_, vals)))
-    return out
+    """``refresh_values`` over [nnz, 3, 3] blocks on the VERTEX pattern
+    (scalar P weights: vals_out[k] = sum w_a w_c B_in[b]). Returns per
+    level (blocks [nnz, 3, 3] in the level's canonical CSR order, diag3
+    [n, 3]: the scalar diagonal of each diagonal block), finest first."""
+    return [(v, torch.diagonal(d, dim1=1, dim2=2)) for v, d in refresh_values(plans, B0_vals)]
 
 
 class BsrRefreshableSolver:

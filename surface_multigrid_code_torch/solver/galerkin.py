@@ -1,4 +1,4 @@
-"""Galerkin coarsening with cached symbolic structure (host half of ``surface_multigrid_code_tpu/solver/galerkin.py``).
+"""Galerkin coarsening with cached symbolic structure (ports ``surface_multigrid_code_tpu/solver/galerkin.py``).
 
 The hierarchy's prolongations P are fixed, so the sparsity of every
 Galerkin product A_{l+1} = P^T A_l P is static and only values change.
@@ -9,8 +9,10 @@ Per level the symbolic expansion
 is precomputed once, with the static P*P weights folded into one
 coefficient per contribution, so a value refresh is one gather, multiply
 and segment sum per level. This module builds those plans on the host
-(numpy); the solvers move the arrays to torch tensors once, on their
-device (``solver/bsr.py``).
+(numpy), moves them to a device once (``device_plan``) and refreshes the
+values there (``refresh_values``: scalar values for MCF's
+``RefreshableMGSolver``, [3, 3] blocks for the balloon's
+``BsrRefreshableSolver``).
 
 The plans keep the JAX package's layout so both packages index the same
 values: short segments as a gather table [nnz_out, W] into the input
@@ -24,6 +26,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import scipy.sparse as sp
+import torch
+from torch import nn
 
 
 @dataclass(frozen=True)
@@ -250,3 +254,61 @@ def galerkin_chain(A0: sp.spmatrix, Ps: list[sp.spmatrix]) -> list[sp.csr_matrix
             )
         )
     return As
+
+
+class DevicePlanLevel(nn.Module):
+    """One ``LevelPlan`` on a device, with its level's CSR pattern."""
+
+    def __init__(self, pl_: LevelPlan, pattern: sp.csr_matrix, device,
+                 dtype: torch.dtype):
+        super().__init__()
+        t = (lambda a, dt: torch.as_tensor(np.asarray(a)).to(device=device, dtype=dt))
+        self.register_buffer("gat_idx", t(pl_.gat_idx, torch.int64))
+        self.register_buffer("gat_w", t(pl_.gat_w, dtype))
+        self.register_buffer("tail_idx", t(pl_.tail_idx, torch.int64))
+        self.register_buffer("tail_w", t(pl_.tail_w, dtype))
+        self.register_buffer("tail_seg", t(pl_.tail_seg, torch.int64))
+        self.register_buffer("diag_idx", t(pl_.diag_idx, torch.int64))
+        self.register_buffer("indptr", t(pattern.indptr, torch.int32))
+        self.register_buffer("indices", t(pattern.indices, torch.int32))
+        self.nnz_out = int(pl_.nnz_out)
+        if pattern.nnz != self.nnz_out:
+            raise ValueError("plan and pattern disagree on the nnz count")
+
+    @property
+    def n(self) -> int:
+        return self.indptr.shape[0] - 1
+
+
+def device_plan(plan: GalerkinPlan, pattern0: sp.csr_matrix, device,
+                dtype: torch.dtype) -> list[DevicePlanLevel]:
+    """All levels of a plan on a device, finest first (level 0 has no
+    triple expansion; its pattern is the one the plan was built on)."""
+    out = [DevicePlanLevel(plan.lvl0, pattern0, device, dtype)]
+    out += [DevicePlanLevel(pl_, plan_pattern(pl_), device, dtype) for pl_ in plan.levels]
+    return out
+
+
+def refresh_values(plans: list[DevicePlanLevel], A0_vals: torch.Tensor):
+    """All-level Galerkin value refresh on the plans' device (ports the JAX
+    package's ``refresh_values``). ``A0_vals`` [nnz, *E] holds the finest
+    values in the canonical CSR order of the plan's pattern, each a scalar
+    (E empty) or an entry of shape E (the balloon's [3, 3] blocks; the P
+    weights are scalars). Per level, vals_out[k] = sum w * vals_in[b] as one
+    gather-multiply-sum over the short segments plus an ``index_add_`` of
+    the long-segment tail. Returns per level (values [nnz_l, *E] in the
+    level's canonical CSR order, which is its CSR data, and the diagonal
+    entries [n_l, *E]), finest first."""
+    vals = A0_vals
+    ent = tuple(vals.shape[1:])
+    bcast = (None,) * len(ent)
+    out = [(vals, vals[plans[0].diag_idx])]
+    for pl_ in plans[1:]:
+        vpad = torch.cat([vals, vals.new_zeros((1, *ent))])
+        vals = (pl_.gat_w[(..., *bcast)] * vpad[pl_.gat_idx]).sum(dim=1)
+        if pl_.tail_idx.shape[0]:
+            tail = torch.zeros_like(vals).index_add_(
+                0, pl_.tail_seg, pl_.tail_w[(..., *bcast)] * vpad[pl_.tail_idx])
+            vals = vals + tail
+        out.append((vals, vals[pl_.diag_idx]))
+    return out

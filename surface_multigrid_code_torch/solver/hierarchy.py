@@ -95,6 +95,25 @@ def get_prolong(
     return V, F, P, J, IM, dec_log
 
 
+def get_prolong_block(
+    VO: np.ndarray,
+    FO: np.ndarray,
+    tarF: int,
+    dec_type: DecimationType = DecimationType.MIDPOINT,
+    seed: int | None = None,
+):
+    """Block (3-DOF) prolongation: P is 3#VO x 3#V on xyz-interleaved DOFs."""
+    V, F, P, J, IM, dec_log = get_prolong(VO, FO, tarF, dec_type, seed=seed)
+    P = P.tocoo()
+    rows = np.concatenate([3 * P.row, 3 * P.row + 1, 3 * P.row + 2])
+    cols = np.concatenate([3 * P.col, 3 * P.col + 1, 3 * P.col + 2])
+    vals = np.concatenate([P.data, P.data, P.data])
+    Pb = sp.coo_matrix(
+        (vals, (rows, cols)), shape=(3 * P.shape[0], 3 * P.shape[1])
+    ).tocsr()
+    return V, F, Pb, J, IM, dec_log
+
+
 def _num_levels(nV: int, ratio: float, nv_coarsest: int) -> int:
     """Reference level-count rule (src/mg_precompute.cpp:27-40)."""
     n_lvs = 1
@@ -115,13 +134,15 @@ def mg_precompute(
     min_coarsest_nv: int = 500,
     dec_type: DecimationType = DecimationType.MIDPOINT,
     mg: list[MGLevel] | None = None,
+    block: bool = False,
     verbose: bool = True,
     seed: int | None = None,
 ) -> list[MGLevel]:
     """Build the level stack (reference src/mg_precompute.cpp:15-90).
 
     If `mg` is passed non-empty, its level-0 record is reused
-    (reference :43-49). Returns the new list of MGLevel.
+    (reference :43-49). With `block`, each P is the 3-expanded block
+    prolongation (`get_prolong_block`). Returns the new list of MGLevel.
     """
     V = np.asarray(V, dtype=np.float64)
     F = np.asarray(F, dtype=np.int64)
@@ -133,7 +154,8 @@ def mg_precompute(
         tarF = int(round(out[lv - 1].F.shape[0] * ratio))
         if verbose:
             print(f"lv: {lv}, tarF: {tarF}")
-        Vc, Fc, P, _, _, _ = get_prolong(
+        build = get_prolong_block if block else get_prolong
+        Vc, Fc, P, _, _, _ = build(
             out[lv - 1].V, out[lv - 1].F, tarF, dec_type, seed=seed
         )
         if verbose:
@@ -200,3 +222,20 @@ def extend_hierarchy(
         out.append(MGLevel(V=Vc, F=Fc, P_full=P, P=P, PT=P.T.tocsr(),
                            dec_type=dec_type, ratio=ratio))
     return out
+
+
+def mg_precompute_block(
+    V: np.ndarray,
+    F: np.ndarray,
+    ratio: float = 0.25,
+    min_coarsest_nv: int = 500,
+    dec_type: DecimationType = DecimationType.MIDPOINT,
+    mg: list[MGLevel] | None = None,
+    verbose: bool = True,
+    seed: int | None = None,
+) -> list[MGLevel]:
+    """Block-DOF hierarchy (reference src/mg_precompute_block.cpp): P acts
+    on xyz-interleaved stacked 3-vectors; the balloon's scalar cross-check
+    solves on it."""
+    return mg_precompute(V, F, ratio, min_coarsest_nv, dec_type, mg=mg,
+                         block=True, verbose=verbose, seed=seed)

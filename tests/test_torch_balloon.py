@@ -21,7 +21,7 @@ from surface_multigrid_code_tpu.models import balloon as jb
 from surface_multigrid_code_tpu.models.shell import ShellEnergy as JShell
 from surface_multigrid_code_tpu.solver.hierarchy import mg_precompute as jmg_precompute
 
-from surface_multigrid_code_torch import mg_precompute
+from surface_multigrid_code_torch import mg_precompute, mg_precompute_block
 from surface_multigrid_code_torch.convert import shell_state_from_jax
 from surface_multigrid_code_torch.models import balloon as tb
 from surface_multigrid_code_torch.models.shell import ShellEnergy, lame_parameters
@@ -107,8 +107,18 @@ def test_run_balloon_defaults_and_scalar_solver():
     assert all(np.isfinite(p).all() for p in out)
     assert [s["last_rejected"] for s in stats] == [0, 0]
     assert np.abs(out[1] - V).max() > np.abs(out[0] - V).max() > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        next(tb.run_balloon(V, F, solver="scalar", verbose=False, device="cpu"))
+    # the scalar cross-check: the 3-expanded hierarchy, multicolor GS
+    stats = []
+    out = list(tb.run_balloon(V, F, solver="scalar", n_steps=2, n_newton=2, verbose=False,
+                              device="cpu", stats=stats,
+                              mg=mg_precompute_block(V, F, min_coarsest_nv=10, verbose=False)))
+    assert len(out) == len(stats) == 2
+    assert all(p.shape == V.shape and np.isfinite(p).all() for p in out)
+    assert [s["last_rejected"] for s in stats] == [0, 0]
+    assert all(len(s["newton"]) == 2 and np.isfinite(s["qdot"]).all() for s in stats)
+    assert np.abs(out[1] - V).max() > np.abs(out[0] - V).max() > 0
+    with pytest.raises(ValueError, match="unknown solver"):
+        next(tb.run_balloon(V, F, solver="dense", verbose=False, device="cpu"))
 
 
 def test_run_balloon_default_device_is_the_card():

@@ -69,6 +69,25 @@ def test_mg_precompute_bitwise_on_icosphere4():
         _same_csr(lv.PT, lj.PT)
 
 
+def test_mg_precompute_block_bitwise_on_icosphere3():
+    """mg_precompute_block (3-expanded prolongations on xyz-interleaved
+    DOFs) gives the JAX package's levels bit for bit."""
+    from surface_multigrid_code_tpu.solver.hierarchy import mg_precompute_block as jblock
+
+    from surface_multigrid_code_torch import mg_precompute_block
+
+    V, F = icosphere(3)
+    mg = mg_precompute_block(V, F, min_coarsest_nv=30, verbose=False)
+    mgj = jblock(V, F, min_coarsest_nv=30, verbose=False)
+    assert len(mg) == len(mgj) == 3
+    for fine, lv, lj in zip(mg[:-1], mg[1:], mgj[1:]):
+        assert np.array_equal(lv.V, lj.V) and np.array_equal(lv.F, lj.F)
+        assert lv.P_full.shape == (3 * fine.V.shape[0], 3 * lv.V.shape[0])
+        _same_csr(lv.P_full, lj.P_full)
+        _same_csr(lv.PT, lj.PT)
+        assert (lv.dec_type, lv.ratio) == (lj.dec_type, lj.ratio)
+
+
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import without jax."""
     code = (
