@@ -8,7 +8,7 @@ Run from the repository root with no arguments:
 It needs one CUDA card, ``nvcc`` and ``g++``, no network and no JAX. It
 builds the port's kernels from ``surface_multigrid_code_torch/csrc``, holds
 each against its plain PyTorch version on the card, and drives the port's
-two paths through their public entry points:
+paths through their public entry points:
 
 - the static solve (SSP hierarchy -> precompute -> multigrid solve) at
   icosphere(7) size, then the constrained, multi-column and
@@ -19,12 +19,20 @@ two paths through their public entry points:
 - the balloon (``models.balloon.run_balloon``, example 06 at its
   defaults) for 3 steps on bunny_15K and 1 step on the midpoint-subdivided
   bunny, held against the host sparse-LU oracle, and one step of its
-  scalar cross-check (``solver="scalar"``) on bunny_15K.
+  scalar cross-check (``solver="scalar"``) on bunny_15K;
+- point queries (``query.device``, K5): 10K, 100K and 1M points walked
+  fine -> coarse on the icosphere(7) log of 161,280 records, held to the
+  host walk and walked back; examples 07-09 on bunny against
+  ``data/golden``;
+- persistence and the CLI: the ico7 and bunny_15K device hierarchies
+  through ``save_device_hierarchy`` / ``load_device_hierarchy`` (bitwise,
+  the same solve), the host hierarchy npz, and ``cli.main`` running
+  ``solve``, ``mcf`` and ``remesh``.
 
 Each path runs with the kernels' launch counts set to 0 just before it
 and read just after: it must have launched its kernels, and no plain
 version; then K1/K2 are held to their plain versions at the path's own
-shapes. It times V-cycles, MCF and balloon steps and kernels against the
+shapes, and K5 to its plain version and the host walk. It times V-cycles, MCF and balloon steps and kernels against the
 plain versions (the MCF and balloon timings each in a child process,
 ``--child mcf|balloon``; every profiler reading is held to CUDA-event
 times), and ends with
@@ -44,6 +52,7 @@ import os
 import pickle
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -64,6 +73,8 @@ BLOCK_KERNELS = {
     "ns_sign_apply": ("surface_multigrid_code_torch/csrc/psd.cu",
                       "surface_multigrid_code_tpu/ops/psd.py:82"),
 }
+QUERY_KERNEL = ("surface_multigrid_code_torch/csrc/query_walk.cu",
+                "surface_multigrid_code_tpu/query/device.py:123 (XLA while_loop; no Pallas kernel)")
 # Balloon: example 06 at the run_balloon defaults; the oracle gaps allowed
 # between the multigrid and the direct f64 step (max|disp|, relative): the
 # tol-2e-1 multigrid direction is least accurate in the first step.
@@ -96,6 +107,28 @@ CHILD_RESULT = "child result: "
 # (|A||z| is ~1000x the residual scale). 1e-4 ||b|| sits above that floor;
 # tighter tolerances are the refinement path's, run in phase 5.
 REL_TOL = 1e-4
+# Queries (phase 13): the log of benchmarks/query_bench.py:33-34,
+# icosphere(QUERY_DEPTH) decimated with dec_type 1 to F/64 faces (161,280
+# records), walked fine -> coarse at QUERY_COUNTS random points. QUERY_BAR
+# is tests/test_query_device.py:47-48 (the position error against the host
+# walk: median below 1e-6, at least 99% within 1e-3); ROUND_TRIP_BAR
+# :96-105 (f2c then c2f back to the start, relative to the mesh scale).
+# QUERY_LIMITS[(against, dtype)] holds K5 at QUERY_CHECK_N queries, both
+# directions, against its plain version and (f64) the host walk: (the
+# largest position error, the least share of queries on the same vertex
+# and face ids), 2.5-3x the worst reading of the first H100 run: K5 and
+# the plain version round the same operations in the same order and
+# agreed bit for bit (0, 1.0) in f32 and f64; against the host walk, which
+# the compiler may contract into FMAs, the f64 K5 read 9.23e-16 and 1.0.
+QUERY_DEPTH = 7
+QUERY_COUNTS = (10_000, 100_000, 1_000_000)
+QUERY_CHECK_N = 100_000
+QUERY_BAR = (1e-6, 1e-3, 0.99)
+ROUND_TRIP_BAR = (5e-3, 5e-2, 0.99)
+QUERY_LIMITS = {("plain", torch.float32): (0.0, 1.0), ("plain", torch.float64): (0.0, 1.0),
+                ("host", torch.float64): (2.5e-15, 1.0)}
+# Examples 08 / 09 as (tag, dec_type, seed, subdivisions), bunny to 500 faces
+EXAMPLES = (("ex08", 1, None, 2), ("ex09", 0, 10, 3))
 # Peaks of one H100 SXM (NVIDIA's data sheet) for the bounds: HBM3 bytes
 # per second, and float32 and float64 operations per second outside the
 # tensor cores.
@@ -1518,6 +1551,415 @@ def child(phase) -> int:
     return 0
 
 
+# ---------------------------------------------------------------- phase 13
+
+def query_system(depth):
+    """The query log of benchmarks/query_bench.py:33-34: icosphere(depth)
+    decimated with dec_type 1 to F/64 faces (161,280 records at depth 7)."""
+    from surface_multigrid_code_torch import SSP_decimate
+    from surface_multigrid_code_torch.utils.synthetic import icosphere
+
+    V, F = icosphere(depth)
+    t0 = time.perf_counter()
+    ok, Vc, Fc, _IMF, _IM, qlog = SSP_decimate(V, F, max(320, F.shape[0] // 64), 1)
+    if not ok:
+        raise RuntimeError(f"icosphere({depth}) decimation failed")
+    return V, F, Vc, Fc, qlog, time.perf_counter() - t0
+
+
+def random_queries(F, n, seed):
+    """n points uniform over the faces of F: (BC, BF, FIdx)."""
+    rng = np.random.default_rng(seed)
+    fids = rng.integers(0, F.shape[0], n)
+    return rng.dirichlet(np.ones(3), n), F[fids], fids
+
+
+def positions(BC, BF, Vtab):
+    return (np.asarray(BC)[:, :, None] * Vtab[np.asarray(BF)]).sum(1)
+
+
+def held_to(p, ref, bar, what, scale=1.0):
+    """The position error |p - ref| / scale held to a bar (median, distance,
+    share): the median below bar[0], at least bar[2] of the points within
+    bar[1]. Returns the readings."""
+    err = np.linalg.norm(p - ref, axis=1) / scale
+    rec = {"median": float(np.median(err)), "within": float((err < bar[1]).mean()),
+           "max": float(err.max())}
+    if not (rec["median"] < bar[0] and rec["within"] >= bar[2]):
+        raise RuntimeError(f"{what}: position error {rec} misses the bar {bar}")
+    return rec
+
+
+def query_path(V, F, Vc, Fc, qlog, dev):
+    """Phase 13 (counted): fine -> coarse through query_fine_to_coarse_device
+    (K5, f32) at each of QUERY_COUNTS, held to the host walk at QUERY_BAR
+    and walked back to the start (query_coarse_to_fine_device) at
+    ROUND_TRIP_BAR; the host walk's and the device call's wall times; then
+    examples 07-09. Returns ({n: record}, {example: record})."""
+    from surface_multigrid_code_torch import query_fine_to_coarse
+    from surface_multigrid_code_torch.query.device import (
+        device_log,
+        query_coarse_to_fine_device,
+        query_fine_to_coarse_device,
+    )
+
+    t0 = time.perf_counter()
+    dlog = device_log(qlog, dev)
+    log(f"phase 13: device_log of {dlog.n_collapse} records in {time.perf_counter() - t0:.3f} s")
+    scale = float(np.linalg.norm(V.max(0) - V.min(0)))
+    warm = random_queries(F, 1000, seed=0)
+    query_fine_to_coarse_device(dlog, *warm)
+    out = {}
+    for n in QUERY_COUNTS:
+        q = random_queries(F, n, seed=n)
+        t0 = time.perf_counter()
+        h = query_fine_to_coarse(qlog, *q)
+        host_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        d = query_fine_to_coarse_device(dlog, *q)
+        dev_s = time.perf_counter() - t0
+        if d[0].shape != (n, 3) or not np.isfinite(d[0]).all():
+            raise RuntimeError(f"phase 13: {n} queries: bad shape or non-finite barycentrics")
+        vs_host = held_to(positions(*d[:2], Vc), positions(*h[:2], Vc), QUERY_BAR,
+                          f"phase 13: {n} queries f2c against the host walk")
+        back = query_coarse_to_fine_device(dlog, *d)
+        trip = held_to(positions(*back[:2], V), positions(*q[:2], V), ROUND_TRIP_BAR,
+                       f"phase 13: {n} queries f2c -> c2f", scale)
+        out[n] = {"host_walk_s": host_s, "device_call_s": dev_s, "vs_host": vs_host,
+                  "same_face": float((d[2] == h[2]).mean()), "round_trip": trip}
+        log(f"phase 13: {n} queries f2c: host walk {host_s:.4f} s, device call (transfers "
+            f"included) {dev_s:.4f} s; position error against the host walk {vs_host}, "
+            f"same coarse face {out[n]['same_face']:.6f}; round trip (of the mesh scale) {trip}")
+    return out, examples_path(dev)
+
+
+def golden(name):
+    from surface_multigrid_code_torch.utils.obj_io import read_obj
+
+    return read_obj(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "golden",
+                                 f"{name}.obj"))
+
+
+def examples_path(dev):
+    """Examples 07-09 on bunny through query_coarse_to_fine_device (K5,
+    f32), against data/golden: ex07's coarse mesh and its coarse vertices
+    mapped onto the fine surface (qslim, 1000 faces), ex08 (500 faces,
+    dec 1, 2 subdivisions) and ex09 (dec 0, seed 10, 3 subdivisions).
+    Connectivity must be exact; vertices meet QUERY_BAR relative to the
+    mesh scale."""
+    from surface_multigrid_code_torch import SSP_decimate
+    from surface_multigrid_code_torch.query.device import device_log, query_coarse_to_fine_device
+    from surface_multigrid_code_torch.solver.hierarchy import _seed_corner_barycentrics
+    from surface_multigrid_code_torch.utils.obj_io import read_obj
+    from surface_multigrid_code_torch.utils.paths import mesh_path
+    from surface_multigrid_code_torch.utils.upsample import upsample_barycentric
+
+    VO, FO = read_obj(mesh_path("bunny"))
+    scale = float(np.linalg.norm(VO.max(0) - VO.min(0)))
+    out = {}
+    ok, V, F, _, _, qlog = SSP_decimate(VO, FO, 1000, 0)
+    Vg, Fg = golden("ex07_coarse")
+    if not ok or not np.array_equal(F, Fg) or not np.allclose(V, Vg, atol=1e-5 * scale):
+        raise RuntimeError("phase 13: ex07's coarse mesh differs from data/golden")
+    d = query_coarse_to_fine_device(device_log(qlog, dev), *_seed_corner_barycentrics(V.shape[0], F))
+    out["ex07"] = held_to(positions(*d[:2], VO), golden("ex07_points")[0], QUERY_BAR,
+                          "phase 13: ex07 points", scale)
+    for tag, dec_type, seed, nsub in EXAMPLES:
+        ok, V, F, _, _, qlog = SSP_decimate(VO, FO, 500, dec_type, seed=seed)
+        BC, BF, FIdx, faces = upsample_barycentric(V, F, nsub)
+        d = query_coarse_to_fine_device(device_log(qlog, dev), BC, BF, FIdx)
+        SV = positions(*d[:2], VO)
+        for it, Fk in enumerate(faces):
+            Vg, Fg = golden(f"{tag}_output_s{it}")
+            if not ok or not np.array_equal(Fk, Fg):
+                raise RuntimeError(f"phase 13: {tag} s{it}: connectivity differs from data/golden")
+            out[f"{tag}_s{it}"] = held_to(SV[: Fk.max() + 1], Vg, QUERY_BAR,
+                                          f"phase 13: {tag} s{it} vertices", scale)
+    log(f"phase 13: examples 07-09 through the device walk match data/golden (connectivity "
+        f"exact; vertex error of the mesh scale {out})")
+    return out
+
+
+def walk_inputs(F, Fc, qlog, n, forward, dev, dtype):
+    """n random queries in working-mesh ids as the walk takes them: on the
+    fine mesh (forward) or the coarse mesh, mapped through IM / IMF."""
+    if forward:
+        BC, BF, FIdx = random_queries(F, n, seed=n + 1)
+    else:
+        BC, BF, FIdx = random_queries(Fc, n, seed=n + 2)
+        BF, FIdx = qlog["IM"][BF], qlog["IMF"][FIdx]
+    return (torch.as_tensor(BC).to(device=dev, dtype=dtype),
+            torch.as_tensor(BF).to(device=dev, dtype=torch.int32),
+            torch.as_tensor(FIdx).to(device=dev, dtype=torch.int32))
+
+
+def walked(fn, dlog, forward, inputs, **kw):
+    """fn (query_walk or its plain version) on copies of the inputs."""
+    BC, BF, FIdx = (t.clone() for t in inputs)
+    fn(dlog, forward, BC, BF, FIdx, **kw)
+    return BC, BF, FIdx
+
+
+def walk_compare(a, b, dest):
+    """Two walks' results (BC, BF, FIdx in working ids): max |BC
+    difference|, share of equal (BF, FIdx), position error of the second
+    against the first (dest maps (BC, BF) to positions)."""
+    a = [t.cpu().numpy() for t in a]
+    b = [t.cpu().numpy() for t in b]
+    same = (a[1] == b[1]).all(1) & (a[2] == b[2])
+    err = np.linalg.norm(dest(a[0], a[1]) - dest(b[0], b[1]), axis=1)
+    return {"max_bc_diff": float(np.abs(a[0].astype(np.float64) - b[0]).max()),
+            "same_ids": float(same.mean()), "max_pos_err": float(err.max()),
+            "median_pos_err": float(np.median(err))}
+
+
+def check_query_kernel(V, F, Vc, Fc, qlog, dev):
+    """Phase 13: K5 against its plain version on the card, f32 and f64,
+    both directions, at QUERY_CHECK_N queries, and the f64 K5 against the
+    host walk (which runs in f64). Each is held to QUERY_LIMITS. Returns
+    the largest |BC difference| from the plain version."""
+    from surface_multigrid_code_torch.query.device import device_log, query_walk, query_walk_plain
+    from surface_multigrid_code_torch.ssp import _native
+
+    im_fwd = np.zeros(int(qlog["IM"].max()) + 1, dtype=np.int64)
+    im_fwd[qlog["IM"]] = np.arange(qlog["IM"].shape[0])
+    dests = {True: (lambda bc, bf: positions(bc, im_fwd[bf], Vc)),
+             False: (lambda bc, bf: positions(bc, bf, V))}
+    worst, recs = 0.0, {}
+    for dt in (torch.float32, torch.float64):
+        dlog = device_log(qlog, dev, dt)
+        for forward in (True, False):
+            inputs = walk_inputs(F, Fc, qlog, QUERY_CHECK_N, forward, dev, dt)
+            k = walked(query_walk, dlog, forward, inputs)
+            checks = {"plain": walk_compare(walked(query_walk_plain, dlog, forward, inputs), k,
+                                            dests[forward])}
+            if dt == torch.float64:
+                host = _native.query_walk(qlog, forward, *(t.cpu().numpy() for t in inputs))
+                checks["host"] = walk_compare(tuple(torch.as_tensor(h) for h in host), k,
+                                              dests[forward])
+            label = f"{'f2c' if forward else 'c2f'} {str(dt)[6:]}"
+            for against, rec in checks.items():
+                limit = QUERY_LIMITS[(against, dt)]
+                log(f"phase 13: K5 {label} against the {against} walk, {QUERY_CHECK_N} queries: "
+                    f"{rec} (limits {limit})")
+                if rec["max_pos_err"] > limit[0] or rec["same_ids"] < limit[1]:
+                    raise RuntimeError(f"K5 {label} disagrees with the {against} walk: {rec}")
+            worst = max(worst, checks["plain"]["max_bc_diff"])
+            recs[label] = checks
+    return worst, recs
+
+
+def walk_bytes(qlog, stats, forward, n, itemsize):
+    """Bytes a walk must move, each read once: the query arrays in and out,
+    and of what the walk visited (``stats`` of query_walk_plain) the
+    records' offsets, vertex ids, both parameterisations and destination
+    faces, and the faces' dim_dat ranges with their offsets. Operations:
+    per step the query point (6) and per face tested the barycentrics (28),
+    a renormalisation per step (5)."""
+    rec = np.flatnonzero(stats["records"].cpu().numpy())
+    faces = np.flatnonzero(stats["faces"].cpu().numpy())
+    foff = qlog["foff_post" if forward else "foff_pre"]
+    nv = np.diff(qlog["voff"])[rec]
+    nf = np.diff(foff)[rec]
+    offsets = 2 * np.union1d(rec, rec + 1).size + np.union1d(faces, faces + 1).size
+    nbytes = (4 * offsets + (4 + 4 * itemsize) * int(nv.sum()) + 16 * int(nf.sum())
+              + 4 * int(np.diff(qlog["dim_off"])[faces].sum())
+              + 2 * n * (3 * itemsize + 16))
+    return nbytes, 11 * stats["steps"] + 28 * stats["tested"]
+
+
+def queued_ms(prep, fn, reps):
+    """Device time of fn alone, per call (median): reps pairs (prep, fn)
+    queued behind a spin kernel so that the card runs them back to back
+    however long the host takes, with CUDA events around each fn only."""
+    prep()
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    for _ in range(4):
+        ea, eb = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        evs = [tuple(torch.cuda.Event(enable_timing=True) for _ in range(2)) for _ in range(reps)]
+        ea.record()
+        torch.cuda._sleep(cycles)
+        eb.record()
+        t0 = time.perf_counter()
+        for e0, e1 in evs:
+            prep()
+            e0.record()
+            fn()
+            e1.record()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        if host_ms < 0.8 * ea.elapsed_time(eb):
+            return float(np.median([e0.elapsed_time(e1) for e0, e1 in evs]))
+        cycles *= 4
+    raise RuntimeError("the calls could not be queued behind the spin kernel")
+
+
+def query_timings(F, Fc, qlog, host, dev, reps=5):
+    """Phase 13: K5 (f32, fine -> coarse) at each of QUERY_COUNTS by CUDA
+    events (queued_ms), its bound from the steps and bytes the plain
+    version counts on the same queries, and the plain version's wall time
+    per call at QUERY_CHECK_N. host: phase 13's host-walk times."""
+    from surface_multigrid_code_torch.query.device import device_log, query_walk, query_walk_plain
+
+    dlog = device_log(qlog, dev)
+    out = {}
+    for n in QUERY_COUNTS:
+        inputs = walk_inputs(F, Fc, qlog, n, True, dev, torch.float32)
+        work = [t.clone() for t in inputs]
+
+        def prep():
+            for w, t in zip(work, inputs):
+                w.copy_(t)
+
+        ms = queued_ms(prep, lambda: query_walk(dlog, True, *work), reps)
+        stats = {}
+        walked(query_walk_plain, dlog, True, inputs, stats=stats)
+        nbytes, ops = walk_bytes(qlog, stats, True, n, 4)
+        bound, by = bound_ms(nbytes, ops)
+        rec = {"ms": ms, "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops,
+               "steps": stats["steps"], "records_visited": int(stats["records"].sum()),
+               "host_walk_ms": 1e3 * host[n]["host_walk_s"],
+               "device_call_ms": 1e3 * host[n]["device_call_s"]}
+        if n == QUERY_CHECK_N:
+            t0 = time.perf_counter()
+            walked(query_walk_plain, dlog, True, inputs)
+            torch.cuda.synchronize()
+            rec["plain_ms"] = 1e3 * (time.perf_counter() - t0)
+        out[n] = rec
+        log(f"phase 13: K5 f2c {n} queries: {ms:.4f} ms (events), bound {bound:.4f} ms ({by}: "
+            f"{nbytes} B, {stats['steps']} steps, {rec['records_visited']} of "
+            f"{dlog.n_collapse} records), host walk {rec['host_walk_ms']:.3f} ms"
+            + (f", plain {rec['plain_ms']:.3f} ms" if "plain_ms" in rec else ""))
+    return out
+
+
+# ---------------------------------------------------------------- phase 14
+
+def same_module(a, b, what):
+    """Every buffer of two modules bitwise equal, with its dtype and
+    device, and their lanes, n_cols, lam_max and n_groups."""
+    sa, sb = a.state_dict(), b.state_dict()
+    if list(sa) != list(sb):
+        raise RuntimeError(f"{what}: the loaded buffers differ in name")
+    for k in sa:
+        if sa[k].dtype != sb[k].dtype or sa[k].device != sb[k].device \
+                or not torch.equal(sa[k], sb[k]):
+            raise RuntimeError(f"{what}: {k} differs after the round trip")
+    for (na, ma), (_, mb) in zip(a.named_modules(), b.named_modules()):
+        for attr in ("lanes", "n_cols", "lam_max", "n_groups"):
+            if getattr(ma, attr, None) != getattr(mb, attr, None):
+                raise RuntimeError(f"{what}: {na}.{attr} differs after the round trip")
+    return len(sa)
+
+
+def persistence_path(jacobi, V, F, mg, A, M, Vb, Fb, mg_b, tmp, dev):
+    """Phase 14: the ico7 Jacobi DeviceHierarchy and the bunny_15K
+    BsrHierarchy (block Hessian at rest, f32) through save_device_hierarchy
+    / load_device_hierarchy on the card: every tensor bitwise with its
+    dtype, and one solve each with bitwise the same residuals; then the
+    ico7 host hierarchy through save_hierarchy / load_hierarchy solves as
+    the one it was written from."""
+    from surface_multigrid_code_torch import (
+        load_device_hierarchy,
+        load_hierarchy,
+        min_quad_with_fixed_mg_precompute,
+        min_quad_with_fixed_mg_solve,
+        save_device_hierarchy,
+        save_hierarchy,
+    )
+    from surface_multigrid_code_torch.models.balloon import BsrBalloonStepper
+    from surface_multigrid_code_torch.solver.bsr import bsr_solve_loop
+    from surface_multigrid_code_torch.solver.vcycle import solve_loop
+
+    out = {}
+    b = np.asarray(M @ V[:, 0])
+    rhs = torch.as_tensor(b, dtype=torch.float32, device=dev)
+    shell, Mb = balloon_shell(Vb, Fb, dev)
+    stepper = BsrBalloonStepper(shell, Mb, mg_b, balloon_defaults()["dt"], dtype=torch.float32)
+    bsr = stepper.solver.refresh(block_hessian(stepper, Vb, dev))
+    rhs_b = torch.as_tensor(np.random.default_rng(9).standard_normal((Vb.shape[0], 3)),
+                            dtype=torch.float32, device=dev)
+    cases = {
+        "ico7 Jacobi DeviceHierarchy": (jacobi.hier, lambda h: solve_loop(
+            h, rhs, torch.zeros_like(rhs), REL_TOL * float(np.linalg.norm(b)), 20, jacobi.cfg)),
+        "bunny_15K BsrHierarchy": (bsr, lambda h: bsr_solve_loop(
+            h, rhs_b, torch.zeros_like(rhs_b), 1e-4 * float(rhs_b.norm()), 20,
+            stepper.solver.cfg)),
+    }
+    for what, (hier, solve) in cases.items():
+        path = os.path.join(tmp, "hier.pt")
+        t0 = time.perf_counter()
+        save_device_hierarchy(path, hier)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = load_device_hierarchy(path, dev)
+        t_load = time.perf_counter() - t0
+        n_buf = same_module(hier, got, what)
+        (z0, r0, k0), (z1, r1, k1) = solve(hier), solve(got)
+        if k0 != k1 or k0 < 2 or not torch.equal(r0, r1) or not torch.equal(z0, z1):
+            raise RuntimeError(f"{what}: the loaded hierarchy solves differently: "
+                               f"{r0[:k0].tolist()} / {r1[:k1].tolist()}")
+        out[what] = {"buffers": n_buf, "bytes": os.path.getsize(path), "save_s": t_save,
+                     "load_s": t_load, "residuals": r0[:k0].tolist()}
+        log(f"phase 14: {what}: {n_buf} tensors round-trip bitwise ({out[what]['bytes']} B, "
+            f"save {t_save:.3f} s, load {t_load:.3f} s); the same {k0} residuals "
+            f"{r0[0].item():.4e} -> {r0[k0 - 1].item():.4e}")
+    path = os.path.join(tmp, "mg.npz")
+    save_hierarchy(path, mg)
+    t0 = time.perf_counter()
+    data = min_quad_with_fixed_mg_precompute(A, None, load_hierarchy(path), jacobi.cfg, device=dev)
+    t_pre = time.perf_counter() - t0
+    tol = REL_TOL * float(np.linalg.norm(b))
+    (z0, r0, ok0), (z1, r1, ok1) = (min_quad_with_fixed_mg_solve(d, b, tolerance=tol)
+                                    for d in (jacobi, data))
+    if not (ok0 and ok1 and r0 == r1 and np.array_equal(z0, z1)):
+        raise RuntimeError(f"phase 14: the loaded host hierarchy solves differently: {r0} / {r1}")
+    out["ico7 host hierarchy"] = {"bytes": os.path.getsize(path), "precompute_s": t_pre,
+                                  "residuals": r0}
+    log(f"phase 14: ico7 host hierarchy through save_hierarchy / load_hierarchy "
+        f"({out['ico7 host hierarchy']['bytes']} B): precompute {t_pre:.3f} s, the same "
+        f"{len(r0)} residuals")
+    return out
+
+
+def cli_path(tmp):
+    """Phase 14: the CLI in process on the card: solve on ogre, mcf for 2
+    steps on bunny, remesh with example 08's arguments (files held to
+    data/golden as tests/test_golden_remesh.py holds them)."""
+    from surface_multigrid_code_torch import cli
+    from surface_multigrid_code_torch.utils.obj_io import read_obj
+    from surface_multigrid_code_torch.utils.paths import mesh_path
+
+    out = {}
+    t0 = time.perf_counter()
+    cli.main(["solve", mesh_path("ogre"), "-o", os.path.join(tmp, "z.npz")])
+    with np.load(os.path.join(tmp, "z.npz")) as z:
+        if not (np.isfinite(z["z"]).all() and z["r_his"][-1] <= 1e-3):
+            raise RuntimeError(f"phase 14: CLI solve did not converge: {z['r_his']}")
+        out["solve"] = {"residuals": z["r_his"].tolist(), "s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    cli.main(["mcf", mesh_path("bunny"), "--steps", "2", "-o", os.path.join(tmp, "mcf.obj")])
+    U, Fu = read_obj(os.path.join(tmp, "mcf.obj"))
+    V0, F0 = read_obj(mesh_path("bunny"))
+    if U.shape != V0.shape or not np.array_equal(Fu, F0) or not np.isfinite(U).all():
+        raise RuntimeError("phase 14: CLI mcf wrote a bad mesh")
+    out["mcf"] = {"s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    prefix = os.path.join(tmp, "rm")
+    cli.main(["remesh", mesh_path("bunny"), "-t", "500", "-d", "1", "-n", "2", "-o", prefix])
+    for it in range(3):
+        (Vr, Fr), (Vg, Fg) = read_obj(f"{prefix}_s{it}.obj"), golden(f"ex08_output_s{it}")
+        if not np.array_equal(Fr, Fg) or not np.allclose(Vr, Vg, atol=1e-5 * np.abs(Vg).max()):
+            raise RuntimeError(f"phase 14: CLI remesh s{it} differs from data/golden")
+    out["remesh"] = {"s": time.perf_counter() - t0}
+    log(f"phase 14: CLI solve (ogre, residuals {out['solve']['residuals']}), mcf (bunny, 2 "
+        f"steps) and remesh (ex08, = data/golden) on the card: "
+        f"{ {k: round(v['s'], 3) for k, v in out.items()} } s")
+    return out
+
+
 # ---------------------------------------------------------------- main
 
 def ptxas_functions(report):
@@ -1587,6 +2029,7 @@ def main() -> int:
     from surface_multigrid_code_torch import mg_precompute
     from surface_multigrid_code_torch.ops.bsr_spmv import fused_bsr_spmv, fused_bsr_spmv_plain
     from surface_multigrid_code_torch.ops.psd import ns_sign_apply, ns_sign_apply_plain
+    from surface_multigrid_code_torch.query.device import query_walk, query_walk_plain
     from surface_multigrid_code_torch.utils.obj_io import read_obj
     from surface_multigrid_code_torch.utils.paths import mesh_path
 
@@ -1603,12 +2046,13 @@ def main() -> int:
         "spmv_fused_planes": lambda: fused_spmv.planes_launches,
         "bsr_spmv": lambda: fused_bsr_spmv.launches,
         "ns_sign_apply": lambda: ns_sign_apply.launches,
+        "query_walk": lambda: query_walk.launches,
     }
-    plains = (fused_spmv_plain, fused_bsr_spmv_plain, ns_sign_apply_plain)
+    plains = (fused_spmv_plain, fused_bsr_spmv_plain, ns_sign_apply_plain, query_walk_plain)
 
     def reset_counts():
         fused_spmv.launches = fused_spmv.planes_launches = 0
-        fused_bsr_spmv.launches = ns_sign_apply.launches = 0
+        fused_bsr_spmv.launches = ns_sign_apply.launches = query_walk.launches = 0
         for f in plains:
             f.calls = 0
 
@@ -1683,6 +2127,41 @@ def main() -> int:
                                                       "qdot": stats[-1]["qdot"]})
     ker.update(bker)
 
+    # phase 13: queries (K5), counted, then K5 against its plain version
+    # and the host walk, and timed
+    Vq, Fq, Vqc, Fqc, qlog, t_dec = query_system(QUERY_DEPTH)
+    log(f"host: ico{QUERY_DEPTH} |F| {Fq.shape[0]} decimated to |F| {Fqc.shape[0]} in "
+        f"{t_dec:.2f} s: {qlog['voff'].shape[0] - 1} collapse records")
+    t13 = time.perf_counter()
+    reset_counts()
+    queries, examples = query_path(Vq, Fq, Vqc, Fqc, qlog, dev)
+    launches["query_walk"] = read_counts("phase 13", ("query_walk",))["query_walk"]
+    errs["query_walk"], walk_checks = check_query_kernel(Vq, Fq, Vqc, Fqc, qlog, dev)
+    walk_t = query_timings(Fq, Fqc, qlog, queries, dev)
+    del qlog
+    ker["query_walk"] = {"kernel": walk_t[QUERY_CHECK_N]["ms"],
+                         "plain": walk_t[QUERY_CHECK_N]["plain_ms"],
+                         "bound": walk_t[QUERY_CHECK_N]["bound_ms"],
+                         "bound_by": walk_t[QUERY_CHECK_N]["bound_by"], "library": None,
+                         "kernel_call": 1e3 * queries[QUERY_CHECK_N]["device_call_s"],
+                         "plain_call": walk_t[QUERY_CHECK_N]["plain_ms"]}
+    t13 = time.perf_counter() - t13
+
+    # phase 14: persistence and the CLI on the card, counted
+    t14 = time.perf_counter()
+    reset_counts()
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".scratch")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        persisted = persistence_path(datas[SmootherType.JACOBI], V, F, mg, A, M, Vb, Fb, mg_b,
+                                     tmp, dev)
+        clis = cli_path(tmp)
+    p14 = read_counts("phase 14", ("spmv_fused", "spmv_fused_planes", "bsr_spmv"))
+    for name in ("spmv_fused", "spmv_fused_planes", "bsr_spmv"):
+        launches[name] += p14[name]
+    t14 = time.perf_counter() - t14
+    log(f"phases 13-14: {t13:.1f} s, {t14:.1f} s")
+
     log(card)
     log(json.dumps({"spmv_shapes": shapes, "mesh": f"icosphere({depth})", "dtype": "float32"}))
     log(json.dumps({"vcycle": vc, "mesh": f"icosphere({depth})", "dtype": "float32"}))
@@ -1694,14 +2173,22 @@ def main() -> int:
                     "launches": mcf_counts, "k2_color_shape": k2_mcf}))
     log(json.dumps({"sign_shapes": signs, "mesh": BALLOON_MESH, "ptxas": sign_regs,
                     "edge_eigs": {"eigenvalues": EDGE_EIGS, "least_eig_and_distance": edge}}))
+    log(json.dumps({"queries": {"by_n": queries, "k5": walk_t, "checks": walk_checks,
+                                "examples": examples},
+                    "mesh": f"icosphere({QUERY_DEPTH}) to F/64, dec_type 1", "dtype": "float32"}))
+    log(json.dumps({"persistence": persisted, "cli": clis}))
     # ms / plain_ms / library_ms: device time per call (profiler, L2 warm:
     # back-to-back calls on inputs that fit in L2), at ico7 level-0 A (K1,
     # K2), the bunny_15K level-0 block Hessian (K3) and its 31,604 face
     # blocks (K4); call_ms / plain_call_ms: per call between CUDA events over
     # back-to-back calls, host included; bound_ms: from this run's shapes at
     # the H100's HBM and f32 peaks; launches: the counted paths together
-    # (phases 4-5, 10, 7 and 12)
-    sources = {**{n: (SOURCE, rep) for n, rep in KERNELS.items()}, **BLOCK_KERNELS}
+    # (phases 4-5, 10, 7, 12, 13 and 14). query_walk (K5): ms is the
+    # kernel's CUDA-event time at QUERY_CHECK_N f2c queries, plain_ms and
+    # plain_call_ms the plain version's wall per call there, call_ms the
+    # wall of query_fine_to_coarse_device (transfers included)
+    sources = {**{n: (SOURCE, rep) for n, rep in KERNELS.items()}, **BLOCK_KERNELS,
+               "query_walk": QUERY_KERNEL}
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],

@@ -1,7 +1,7 @@
 """surface_multigrid_code_torch: the surface multigrid solver in PyTorch + CUDA.
 
 The port of ``surface_multigrid_code_tpu`` (JAX on a TPU) to PyTorch on an
-NVIDIA H100. Module names mirror the JAX package. It carries three paths:
+NVIDIA H100. Module names mirror the JAX package. It carries these paths:
 
 - the static Galerkin multigrid solve: mg_precompute ->
   min_quad_with_fixed_mg_precompute -> build_device_hierarchy ->
@@ -11,22 +11,42 @@ NVIDIA H100. Module names mirror the JAX package. It carries three paths:
   (``RefreshableMGSolver``) and V-cycles on [n, 3];
 - the balloon shell simulation (``models.balloon.run_balloon``): the BSR
   multigrid (``solver="bsr"``), or the scalar cross-check on the
-  refreshed solver (``solver="scalar"``).
+  refreshed solver (``solver="scalar"``);
+- point queries between the levels of an SSP decimation: the host OpenMP
+  walk (``query_fine_to_coarse``, ``query_coarse_to_fine``) and the walk on
+  the card (``query.device``, kernel K5);
+- persistence: the collapse log and the host hierarchy in the JAX
+  package's npz formats (``ssp.decimate.save_log``, ``save_hierarchy``),
+  the device hierarchies with torch (``save_device_hierarchy``);
+- the command line, ``python -m surface_multigrid_code_torch <cmd>``
+  (``cli.py``: decimate, hierarchy, solve, mcf, remesh).
 
-Host precompute (SSP decimation in the shared C++ engine, Laplacians,
-Galerkin plans, colorings) is numpy/scipy; every SpMV of a V-cycle is one
-launch of a hand-written CUDA kernel (``csrc/``). The package imports
-torch, numpy and scipy, and never jax or the JAX package.
+Host precompute (SSP decimation in the port's copy of the C++ engine,
+``native/``, Laplacians, Galerkin plans, colorings) is numpy/scipy; every
+SpMV of a V-cycle is one launch of a hand-written CUDA kernel (``csrc/``).
+The package imports torch, numpy and scipy, and never jax or the JAX
+package.
 """
 
 from surface_multigrid_code_torch.config import MGConfig, SolveConfig
 from surface_multigrid_code_torch.models.mcf import MCFStepper
-from surface_multigrid_code_torch.solver.hierarchy import mg_precompute, mg_precompute_block
+from surface_multigrid_code_torch.query.maps import query_coarse_to_fine, query_fine_to_coarse
+from surface_multigrid_code_torch.solver.hierarchy import (
+    load_hierarchy,
+    mg_precompute,
+    mg_precompute_block,
+    save_hierarchy,
+)
 from surface_multigrid_code_torch.solver.mqwf_mg import (
     min_quad_with_fixed_mg_precompute,
     min_quad_with_fixed_mg_solve,
 )
 from surface_multigrid_code_torch.solver.refresh import RefreshableMGSolver
+from surface_multigrid_code_torch.solver.serialize import (
+    load_device_hierarchy,
+    save_device_hierarchy,
+)
+from surface_multigrid_code_torch.ssp.decimate import SSP_decimate
 
 __version__ = "0.1.0"
 
@@ -34,9 +54,16 @@ __all__ = [
     "MCFStepper",
     "MGConfig",
     "RefreshableMGSolver",
+    "SSP_decimate",
     "SolveConfig",
+    "load_device_hierarchy",
+    "load_hierarchy",
     "mg_precompute",
     "mg_precompute_block",
     "min_quad_with_fixed_mg_precompute",
     "min_quad_with_fixed_mg_solve",
+    "query_coarse_to_fine",
+    "query_fine_to_coarse",
+    "save_device_hierarchy",
+    "save_hierarchy",
 ]

@@ -42,6 +42,9 @@ _K2_ARGS = [_p, _p, _p, _p, _p, _p, _p, _p, _d, _p, _i, _i, _i, _i, _p]
 _K3_ARGS = [_p, _p, _p, _p, _p, _p, _p, _p, _d, _i, _i, _i, _p]
 # X, Y, m, d, schedule (host double [2 * steps]), steps, stream
 _K4_ARGS = [_p, _p, _i, _i, _p, _i, _p]
+# voff, subset, uv_src, uv_dst, foff, fuv, fidx, dim_off, dim_dat, BC, BF, FIdx,
+# nq, n_collapse, forward, stream
+_K5_ARGS = [_p] * 12 + [_i, _i, _i, _p]
 SIGNATURES = {
     "smg_spmv_fused_f32": _K1_ARGS,
     "smg_spmv_fused_f64": _K1_ARGS,
@@ -51,6 +54,8 @@ SIGNATURES = {
     "smg_bsr_spmv_f64": _K3_ARGS,
     "smg_ns_sign_apply_f32": _K4_ARGS,
     "smg_ns_sign_apply_f64": _K4_ARGS,
+    "smg_query_walk_f32": _K5_ARGS,
+    "smg_query_walk_f64": _K5_ARGS,
 }
 
 

@@ -1,10 +1,21 @@
-"""Fine-to-coarse point queries through the SSP collapse log (ports ``query_fine_to_coarse`` of ``surface_multigrid_code_tpu/query/maps.py``).
+"""Bidirectional point queries through the SSP collapse log on the host (ports ``surface_multigrid_code_tpu/query/maps.py``).
 
-Semantics follow reference src/query_fine_to_coarse.cpp: push (BC, BF,
-FIdx) query points given on the fine mesh forward through every collapse
-whose pre-patch contained their current face, in increasing collapse
-order, then reindex vertex ids through IM and face ids through FIM
-(:132-151). The walk runs in the native engine (OpenMP over queries).
+Semantics follow the reference exactly:
+
+- ``query_fine_to_coarse`` (src/query_fine_to_coarse.cpp): push (BC, BF,
+  FIdx) query points given on the FINE mesh forward through every collapse
+  whose pre-patch contained their current face, in increasing collapse
+  order; at each step evaluate the point in UV_pre, re-barycentrize in
+  UV_post with a max-min-barycentric snap (clamp negatives, renormalize,
+  :90-118), then finally reindex vertex ids through IM and face ids
+  through FIM (:132-151).
+- ``query_coarse_to_fine`` (src/query_coarse_to_fine.cpp): first map
+  coarse indices to original ids via IM/IMF (:22-36), then walk collapses
+  in DECREASING order mapping UV_post -> UV_pre.
+
+The walks run in the native engine (OpenMP over queries, the analog of
+the reference's igl::parallel_for grain-1000 fan-out). ``query/device.py``
+runs the same walks on the card (K5).
 """
 
 from __future__ import annotations
@@ -31,4 +42,20 @@ def query_fine_to_coarse(log: dict, BC, BF, FIdx):
     index_map[IM] = np.arange(IM.shape[0])
     BF = index_map[BF]
     FIdx = log["FIM"][FIdx]
+    return BC, BF, FIdx
+
+
+def query_coarse_to_fine(log: dict, BC, BF, FIdx):
+    """Walk coarse-mesh points back to the fine mesh.
+
+    BF: coarse vertex ids, FIdx: coarse face ids on input; fine ids on
+    output.
+    """
+    BC = np.array(BC, dtype=np.float64, copy=True)
+    BF = np.array(BF, dtype=np.int64, copy=True)
+    FIdx = np.array(FIdx, dtype=np.int64, copy=True)
+    # coarse ids -> working-mesh ids (reference :22-36)
+    BF = log["IM"][BF]
+    FIdx = log["IMF"][FIdx]
+    BC, BF, FIdx = _native.query_walk(log, False, BC, BF, FIdx)
     return BC, BF, FIdx

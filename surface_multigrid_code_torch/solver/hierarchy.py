@@ -1,4 +1,4 @@
-"""Multigrid hierarchy construction (ports ``get_prolong`` / ``mg_precompute`` of ``surface_multigrid_code_tpu/solver/hierarchy.py``).
+"""Multigrid hierarchy construction and its npz (ports ``surface_multigrid_code_tpu/solver/hierarchy.py``).
 
 Host-side (offline) stage: runs SSP decimation and composes the collapse
 log into sparse prolongation operators.
@@ -13,6 +13,9 @@ Semantics follow the reference:
   all fine vertices through the collapse log with query_fine_to_coarse,
   and assembles P (#V_fine x #V_coarse, rows = convex barycentric weights,
   <= 3 nnz each) from (row, BF, BC) triplets.
+- `save_hierarchy` / `load_hierarchy`: per-level V/F, decimation metadata
+  and CSR prolongations in one npz, the JAX package's format, so a file
+  either package writes loads in the other.
 """
 
 from __future__ import annotations
@@ -222,6 +225,55 @@ def extend_hierarchy(
         out.append(MGLevel(V=Vc, F=Fc, P_full=P, P=P, PT=P.T.tocsr(),
                            dec_type=dec_type, ratio=ratio))
     return out
+
+
+def save_hierarchy(path, mg: list[MGLevel]) -> None:
+    """Serialize a hierarchy (per-level V/F + CSR prolongations) to npz:
+    the checkpoint the reference never persists, so the expensive SSP host
+    precompute becomes reusable across runs."""
+    arrs: dict[str, np.ndarray] = {"n_levels": np.asarray([len(mg)])}
+    for lv, L in enumerate(mg):
+        arrs[f"V{lv}"] = L.V
+        arrs[f"F{lv}"] = L.F
+        arrs[f"meta{lv}"] = np.asarray([
+            -1.0 if L.dec_type is None else float(int(L.dec_type)),
+            np.nan if L.ratio is None else float(L.ratio),
+        ])
+        if lv > 0:
+            P = L.P_full.tocsr()
+            arrs[f"P{lv}_indptr"] = P.indptr
+            arrs[f"P{lv}_indices"] = P.indices
+            arrs[f"P{lv}_data"] = P.data
+            arrs[f"P{lv}_shape"] = np.asarray(P.shape)
+    np.savez_compressed(path, **arrs)
+
+
+def load_hierarchy(path) -> list[MGLevel]:
+    with np.load(path) as z:
+        n = int(z["n_levels"][0])
+        mg = []
+        for lv in range(n):
+            level = MGLevel(V=z[f"V{lv}"], F=z[f"F{lv}"])
+            if f"meta{lv}" in z.files:
+                dt, rt = z[f"meta{lv}"]
+                if dt >= 0:
+                    level.dec_type = DecimationType(int(dt))
+                if not np.isnan(rt):
+                    level.ratio = float(rt)
+            if lv > 0:
+                P = sp.csr_matrix(
+                    (
+                        z[f"P{lv}_data"],
+                        z[f"P{lv}_indices"],
+                        z[f"P{lv}_indptr"],
+                    ),
+                    shape=tuple(z[f"P{lv}_shape"]),
+                )
+                level.P_full = P
+                level.P = P
+                level.PT = P.T.tocsr()
+            mg.append(level)
+    return mg
 
 
 def mg_precompute_block(

@@ -2,10 +2,10 @@
 
 The greedy SSP collapse loop (reference src/SSP_midpoint.cpp:119-245) is
 sequential host code with dynamic topology, so it lives in C++. The port
-shares that C++ with the JAX package: it compiles
-``surface_multigrid_code_tpu/native/ssp.cpp`` by file path (reading a
-source file imports nothing of that package) into the port's own build
-directory, ``surface_multigrid_code_torch/build/``. The library name
+carries its own copy of that engine, ``surface_multigrid_code_torch/native/``
+(``ssp.cpp`` and its headers, byte-identical to the JAX package's), and
+compiles it into its own build directory,
+``surface_multigrid_code_torch/build/``. The library name
 carries a hash of the sources, the build flags and the host CPU, so a
 ``-march=native`` build is never reused on another CPU.
 
@@ -26,7 +26,7 @@ from pathlib import Path
 import numpy as np
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
-_NATIVE_DIR = _PKG_DIR.parent / "surface_multigrid_code_tpu" / "native"
+_NATIVE_DIR = _PKG_DIR / "native"
 _BUILD_DIR = _PKG_DIR / "build"
 _SOURCES = ["ssp.cpp", "dense.hpp", "lscm.hpp", "mesh.hpp"]
 _LOCK = threading.Lock()

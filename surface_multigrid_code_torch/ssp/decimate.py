@@ -1,13 +1,17 @@
-"""SSP decimation dispatcher (ports ``SSP_decimate`` of ``surface_multigrid_code_tpu/ssp/decimate.py``).
+"""SSP decimation and the collapse log's npz (ports ``surface_multigrid_code_tpu/ssp/decimate.py``).
 
 Mirrors reference `SSP_decimate` (src/SSP_decimate.cpp:3-40): rejects
 non-manifold input, dispatches on dec_type (0=qslim, 1=midpoint,
 2=vertex removal), returns the coarse mesh, birth maps and the
 successive-self-parameterization log. The log is a dict of flat numpy
-arrays (CSR-style offsets) consumed by the native query walks.
+arrays (CSR-style offsets) consumed by the native and device query walks,
+and saved as an npz (``save_log`` / ``load_log``) in the JAX package's
+format, so a log either package writes loads in the other.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 
@@ -49,3 +53,14 @@ def SSP_decimate(
         return False, None, None, None, None, None
     log = {k: out[k] for k in LOG_KEYS}
     return True, out["V"], out["F"], out["IMF"], out["IM"], log
+
+
+def save_log(path: str | Path, log: dict) -> None:
+    """Serialize a collapse log (the hierarchy checkpoint the reference
+    never persists)."""
+    np.savez_compressed(path, **log)
+
+
+def load_log(path: str | Path) -> dict:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}

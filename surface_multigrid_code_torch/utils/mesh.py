@@ -1,7 +1,7 @@
 """Mesh helpers the solve path calls (ports part of ``surface_multigrid_code_tpu/utils/mesh.py``).
 
-Only ``boundary_vertices`` and ``normalize_unit_area`` (with the helpers
-they need) are carried; the adjacency and quality utilities of the JAX
+Only ``boundary_vertices``, ``boundary_loops`` and ``normalize_unit_area``
+(with the helpers they need) are carried; the adjacency and quality utilities of the JAX
 package serve the decimator and LSCM code, which run in the shared native
 engine.
 """
@@ -31,6 +31,43 @@ def boundary_facets(F: np.ndarray) -> np.ndarray:
 def boundary_vertices(F: np.ndarray) -> np.ndarray:
     """Sorted unique vertex ids on the mesh boundary."""
     return np.unique(boundary_facets(F))
+
+
+def boundary_loops(F: np.ndarray) -> list[np.ndarray]:
+    """Ordered boundary loops (longest first).
+
+    Analog of igl::boundary_loop; example 03 and the CLI's ``solve``
+    constrain the LONGEST loop only (reference 03_mg_solver/main.cpp:49-51)."""
+    bf = boundary_facets(F)
+    nxt: dict[int, int] = {}
+    for s, d in bf:
+        s, d = int(s), int(d)
+        if s in nxt:
+            # a boundary vertex with two outgoing boundary edges means two
+            # loops pinch at it: the walk below would be ill-defined
+            raise ValueError(
+                f"non-manifold boundary: vertex {s} lies on multiple"
+                " boundary loops"
+            )
+        nxt[s] = d
+    seen: set[int] = set()
+    loops: list[np.ndarray] = []
+    n_edges = len(bf)
+    for start in list(nxt):
+        if start in seen:
+            continue
+        loop = [start]
+        seen.add(start)
+        v = nxt[start]
+        while v != start:
+            loop.append(v)
+            seen.add(v)
+            if len(loop) > n_edges:
+                raise ValueError("boundary walk did not close: bad input mesh")
+            v = nxt[v]
+        loops.append(np.asarray(loop, dtype=np.int64))
+    loops.sort(key=len, reverse=True)
+    return loops
 
 
 def doublearea(V: np.ndarray, F: np.ndarray) -> np.ndarray:

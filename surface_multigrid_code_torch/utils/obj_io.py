@@ -1,7 +1,8 @@
-"""Wavefront OBJ triangle-mesh reading (ports ``surface_multigrid_code_tpu/utils/obj_io.py``).
+"""Wavefront OBJ triangle-mesh IO (ports ``surface_multigrid_code_tpu/utils/obj_io.py``).
 
-Only the V/F subset (positions + triangular faces) is read. Polygonal faces
-are fan triangulated; texture/normal indices in face tokens are ignored.
+Only the V/F subset (positions + triangular faces) is read and written.
+Polygonal faces are fan triangulated; texture/normal indices in face
+tokens are ignored.
 """
 
 from __future__ import annotations
@@ -27,3 +28,14 @@ def read_obj(path: str) -> tuple[np.ndarray, np.ndarray]:
     V = np.asarray(verts, dtype=np.float64)
     F = np.asarray(faces, dtype=np.int32).reshape(-1, 3)
     return V, F
+
+
+def write_obj(path: str, V: np.ndarray, F: np.ndarray) -> None:
+    """Write (V, F) as an OBJ file (1-based face indices)."""
+    V = np.asarray(V, dtype=np.float64)
+    F = np.asarray(F)
+    with open(path, "w") as fh:
+        for v in V:
+            fh.write(f"v {v[0]:.17g} {v[1]:.17g} {v[2]:.17g}\n")
+        for f in F:
+            fh.write(f"f {f[0] + 1} {f[1] + 1} {f[2] + 1}\n")

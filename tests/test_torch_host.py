@@ -88,6 +88,43 @@ def test_mg_precompute_block_bitwise_on_icosphere3():
         assert (lv.dec_type, lv.ratio) == (lj.dec_type, lj.ratio)
 
 
+def test_native_engine_is_the_port_s_own_byte_identical_copy():
+    """The port builds the SSP engine from its own copy of the C++ sources,
+    byte for byte the JAX package's."""
+    from surface_multigrid_code_torch.ssp import _native
+
+    assert _native._NATIVE_DIR == REPO / "surface_multigrid_code_torch" / "native"
+    for name in _native._SOURCES:
+        ours = (_native._NATIVE_DIR / name).read_bytes()
+        assert ours == (REPO / "surface_multigrid_code_tpu" / "native" / name).read_bytes(), name
+    assert "surface_multigrid_code_tpu" not in Path(_native.__file__).read_text().split('"""')[2]
+
+
+def test_write_obj_boundary_loops_upsample_bitwise(tmp_path):
+    """write_obj writes the same bytes, boundary_loops the same loops and
+    upsample_barycentric the same arrays as the JAX package's."""
+    from surface_multigrid_code_tpu.utils.mesh import boundary_loops as jloops
+    from surface_multigrid_code_tpu.utils.obj_io import write_obj as jwrite
+    from surface_multigrid_code_tpu.utils.upsample import upsample_barycentric as jup
+
+    from surface_multigrid_code_torch.utils.mesh import boundary_loops
+    from surface_multigrid_code_torch.utils.obj_io import write_obj
+    from surface_multigrid_code_torch.utils.upsample import upsample_barycentric
+
+    V, F = read_obj(mesh_path("ogre"))
+    write_obj(tmp_path / "t.obj", V, F)
+    jwrite(tmp_path / "j.obj", V, F)
+    assert (tmp_path / "t.obj").read_bytes() == (tmp_path / "j.obj").read_bytes()
+    loops, jl = boundary_loops(F), jloops(F)
+    assert len(loops) == len(jl) >= 1
+    assert all(np.array_equal(a, b) and a.dtype == b.dtype for a, b in zip(loops, jl))
+    Vs, Fs = icosphere(1)
+    ours, theirs = upsample_barycentric(Vs, Fs, 2), jup(Vs, Fs, 2)
+    for a, b in zip(ours[:3], theirs[:3]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert all(np.array_equal(a, b) for a, b in zip(ours[3], theirs[3]))
+
+
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import without jax."""
     code = (
@@ -101,6 +138,8 @@ def test_port_imports_no_jax():
         "       or m.startswith('surface_multigrid_code_tpu')]\n"
         "assert not bad, bad\n"
         "assert len(names) >= 20, names\n"
+        "for need in ('cli', 'query.device', 'solver.serialize', 'utils.upsample'):\n"
+        "    assert pkg.__name__ + '.' + need in names, need\n"
         "print(len(names))\n"
     )
     env = dict(os.environ)

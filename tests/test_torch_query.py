@@ -1,0 +1,239 @@
+"""The port's point queries against the JAX package's and the host walk.
+
+The walk on the card (K5, ``csrc/query_walk.cu``) runs only there; on the
+CPU ``query.device.query_walk`` takes its plain PyTorch version, the JAX
+package's lockstep loop. Here that version is held against the JAX
+package's device walk and the host OpenMP walk on one icosphere(3) log, at
+the bars of ``tests/test_query_device.py``: positions, not ids, because an
+f32 walk may take the other face of an exact tie. ``chip_smoke.py`` holds
+K5 against the same version on the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from surface_multigrid_code_tpu.query.device import pad_log
+from surface_multigrid_code_tpu.query.device import (
+    query_coarse_to_fine_device as jax_c2f,
+    query_fine_to_coarse_device as jax_f2c,
+)
+from surface_multigrid_code_tpu.ssp.decimate import SSP_decimate as jax_decimate
+from surface_multigrid_code_tpu.utils.synthetic import icosphere
+
+from surface_multigrid_code_torch.query import device as qd
+from surface_multigrid_code_torch.query.maps import query_coarse_to_fine, query_fine_to_coarse
+from surface_multigrid_code_torch.ssp.decimate import SSP_decimate
+
+torch.set_num_threads(1)
+
+
+def _positions(bc, bf, Vtab):
+    return (np.asarray(bc)[:, :, None] * Vtab[np.asarray(bf)]).sum(1)
+
+
+def _rand_queries(F, n, seed=0):
+    rng = np.random.default_rng(seed)
+    fids = rng.integers(0, F.shape[0], n)
+    return rng.dirichlet(np.ones(3), n), F[fids], fids
+
+
+def _corner_seeds(nV, F):
+    """Each vertex at a corner of its first face (tests/test_query_device.py)."""
+    BC = np.zeros((nV, 3))
+    BF = np.zeros((nV, 3), dtype=np.int64)
+    FIdx = np.zeros(nV, dtype=np.int64)
+    seen = np.zeros(nV, bool)
+    for fi, f in enumerate(F):
+        for c, v in enumerate(f):
+            if not seen[v]:
+                seen[v] = True
+                BC[v, c] = 1.0
+                BF[v] = f
+                FIdx[v] = fi
+    return BC, BF, FIdx
+
+
+def _held(p, ref):
+    """The bar of tests/test_query_device.py:47-48."""
+    err = np.linalg.norm(p - ref, axis=1)
+    assert np.median(err) < 1e-6, np.median(err)
+    assert (err < 1e-3).mean() > 0.99, err.max()
+
+
+@pytest.fixture(scope="module")
+def ico3():
+    V, F = icosphere(3)
+    ok, Vc, Fc, IMF, IM, log = SSP_decimate(V, F, 320, 0)
+    assert ok
+    return V, F, Vc, Fc, log
+
+
+@pytest.mark.parametrize("forward", [True, False], ids=["f2c", "c2f"])
+def test_plain_walk_matches_jax_and_host(ico3, forward):
+    V, F, Vc, Fc, log = ico3
+    dlog = qd.device_log(log, "cpu")
+    if forward:
+        q, host, port, jax, Vout = (_rand_queries(F, 3000, seed=1), query_fine_to_coarse,
+                                    qd.query_fine_to_coarse_device, jax_f2c, Vc)
+    else:
+        q, host, port, jax, Vout = (_corner_seeds(Vc.shape[0], Fc), query_coarse_to_fine,
+                                    qd.query_coarse_to_fine_device, jax_c2f, V)
+    calls = qd.query_walk_plain.calls
+    got = port(dlog, *q)
+    assert qd.query_walk_plain.calls == calls + 1
+    assert got[0].dtype == np.float64 and got[1].dtype == got[2].dtype == np.int64
+    p = _positions(got[0], got[1], Vout)
+    _held(p, _positions(*host(log, *q)[:2], Vout))
+    _held(p, _positions(*jax(pad_log(log), *q)[:2], Vout))
+
+
+def test_plain_walk_f64_follows_host(ico3):
+    """In float64 the plain version takes the host walk's faces and its
+    barycentrics to rounding (the host contracts products into FMAs where
+    the compiler chooses, so not bit for bit)."""
+    V, F, Vc, Fc, log = ico3
+    dlog = qd.device_log(log, "cpu", torch.float64)
+    q = _rand_queries(F, 3000, seed=4)
+    h = query_fine_to_coarse(log, *q)
+    d = qd.query_fine_to_coarse_device(dlog, *q)
+    assert np.array_equal(h[1], d[1]) and np.array_equal(h[2], d[2])
+    assert np.abs(h[0] - d[0]).max() < 1e-12
+    h2 = query_coarse_to_fine(log, *h)
+    d2 = qd.query_coarse_to_fine_device(dlog, *d)
+    assert np.array_equal(h2[2], d2[2])
+    assert np.abs(_positions(*h2[:2], V) - _positions(*d2[:2], V)).max() < 1e-12
+
+
+@pytest.mark.parametrize("dec_type,seed", [(0, None), (1, None), (2, None), (1, 7), (0, 3)])
+def test_round_trip_f2c_c2f(dec_type, seed):
+    """f2c then c2f returns to the start (tests/test_query_device.py:96-105)."""
+    V, F = icosphere(3)
+    ok, Vc, Fc, IMF, IM, log = SSP_decimate(V, F, 320, dec_type, seed=seed)
+    assert ok
+    dlog = qd.device_log(log, "cpu")
+    bc, bf, fids = _rand_queries(F, 2000, seed=1)
+    p0 = _positions(bc, bf, V)
+    back = qd.query_coarse_to_fine_device(dlog, *qd.query_fine_to_coarse_device(dlog, bc, bf, fids))
+    scale = np.linalg.norm(V.max(0) - V.min(0))
+    err = np.linalg.norm(p0 - _positions(back[0], back[1], V), axis=1) / scale
+    assert np.median(err) < 5e-3, np.median(err)
+    assert (err < 5e-2).mean() > 0.99
+
+
+def test_device_log_matches_pad_log(ico3):
+    """device_log's CSR arrays, padded, are pad_log's non-pad entries."""
+    _V, _F, _Vc, _Fc, log = ico3
+    jl = pad_log(log)
+    dl = qd.device_log(log, "cpu")
+    assert dl.subset.dtype == torch.int32 and dl.uv_pre.dtype == torch.float32
+    pad = (lambda off, flat, fill: qd._pad(off, flat, fill).numpy())
+    assert np.array_equal(pad(dl.voff, dl.subset, -1), np.asarray(jl.subset))
+    for k in ("uv_pre", "uv_post"):
+        assert np.array_equal(pad(dl.voff, getattr(dl, k), 0.0), np.asarray(getattr(jl, k)))
+    for side in ("pre", "post"):
+        off = getattr(dl, f"foff_{side}")
+        nf = np.asarray(getattr(jl, f"nf_{side}"))
+        assert np.array_equal(np.diff(off.numpy()), nf)
+        valid = np.arange(np.asarray(getattr(jl, f"fidx_{side}")).shape[1])[None] < nf[:, None]
+        for k, fill in (("fuv", 0), ("fidx", -1)):
+            mine = pad(off, getattr(dl, f"{k}_{side}"), fill)
+            theirs = np.asarray(getattr(jl, f"{k}_{side}"))
+            assert np.array_equal(mine[valid], theirs[valid])
+    assert np.array_equal(pad(dl.dim_off, dl.dim_dat, -1), np.asarray(jl.dim))
+    for mine, theirs in ((dl.im_fwd, jl.im_fwd), (dl.FIM, jl.fim), (dl.IM, jl.im),
+                         (dl.IMF, jl.imf)):
+        assert np.array_equal(mine.numpy(), np.asarray(theirs))
+
+
+def test_device_log_refuses_ids_outside_int32(ico3):
+    log = dict(ico3[4])
+    log["dim_dat"] = log["dim_dat"] + 2**31
+    with pytest.raises(ValueError, match="int32"):
+        qd.device_log(log, "cpu")
+
+
+def test_public_queries_refuse_ids_the_log_does_not_hold(ico3):
+    """Ids index the log's tables on the card: out of range raises before
+    any walk."""
+    _V, F, _Vc, Fc, log = ico3
+    dlog = qd.device_log(log, "cpu")
+    bc, bf, fids = _rand_queries(F, 10, seed=6)
+    with pytest.raises(ValueError, match="face ids"):
+        qd.query_fine_to_coarse_device(dlog, bc, bf, fids + F.shape[0])
+    cbc, cbf, cfi = _rand_queries(Fc, 10, seed=6)
+    with pytest.raises(ValueError, match="vertex ids"):
+        qd.query_coarse_to_fine_device(dlog, cbc, cbf - cbf.max() - 1, cfi)
+    with pytest.raises(ValueError, match="face ids"):
+        qd.query_coarse_to_fine_device(dlog, cbc, cbf, cfi + Fc.shape[0])
+    with pytest.raises(ValueError, match="shapes"):
+        qd.query_fine_to_coarse_device(dlog, bc[:, :2], bf, fids)
+
+
+def test_device_log_default_device_is_the_card(ico3):
+    """Without a card the default device raises: no fallback to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        qd.device_log(ico3[4])
+
+
+def test_query_walk_takes_the_plain_version_only_on_the_cpu(ico3):
+    _V, F, _Vc, _Fc, log = ico3
+    dlog = qd.device_log(log, "cpu")
+    bc, bf, fids = _rand_queries(F, 100, seed=5)
+    BC = torch.tensor(bc, dtype=torch.float32)
+    BF = torch.tensor(bf, dtype=torch.int32)
+    FI = torch.tensor(fids, dtype=torch.int32)
+    launches, calls = qd.query_walk.launches, qd.query_walk_plain.calls
+    stats = {}
+    out = qd.query_walk_plain(dlog, True, BC.clone(), BF.clone(), FI.clone(), stats=stats)
+    got = qd.query_walk(dlog, True, BC, BF, FI)
+    assert got[0] is BC and got[1] is BF and got[2] is FI  # in place
+    assert all(torch.equal(a, b) for a, b in zip(out, got))
+    assert qd.query_walk.launches == launches
+    assert qd.query_walk_plain.calls == calls + 2
+    assert stats["steps"] > 0 and 0 < int(stats["records"].sum()) <= dlog.n_collapse
+    with pytest.raises(TypeError, match="CUDA or CPU"):
+        qd.query_walk(dlog, True, BC.to("meta"), BF.to("meta"), FI.to("meta"))
+
+
+def _remesh(dec_type, seed, nsub, tarF=500):
+    from surface_multigrid_code_torch.utils.obj_io import read_obj
+    from surface_multigrid_code_torch.utils.paths import mesh_path
+    from surface_multigrid_code_torch.utils.upsample import upsample_barycentric
+
+    VO, FO = read_obj(mesh_path("bunny"))
+    ok, V, F, IMF, IM, log = SSP_decimate(VO, FO, tarF, dec_type, seed=seed)
+    assert ok
+    BC, BF, FIdx, faces = upsample_barycentric(V, F, nsub)
+    BC, BF, FIdx = query_coarse_to_fine(log, BC, BF, FIdx)
+    return (BC[:, :, None] * VO[BF]).sum(axis=1), faces
+
+
+@pytest.mark.parametrize("tag,dec_type,seed,nsub", [("ex08", 1, None, 2), ("ex09", 0, 10, 3)])
+def test_remesh_through_the_port_matches_golden(tag, dec_type, seed, nsub):
+    """Examples 08 / 09 through the port's host walk against data/golden,
+    at tests/test_golden_remesh.py's tolerance."""
+    from pathlib import Path
+
+    from surface_multigrid_code_torch.utils.obj_io import read_obj
+
+    golden = Path(__file__).resolve().parent.parent / "data" / "golden"
+    SV, faces = _remesh(dec_type, seed, nsub)
+    for it, Fk in enumerate(faces):
+        Vg, Fg = read_obj(str(golden / f"{tag}_output_s{it}.obj"))
+        Vr = SV[: Fk.max() + 1]
+        assert Fg.shape == Fk.shape and np.array_equal(Fg, Fk)
+        assert Vg.shape == Vr.shape
+        assert np.allclose(Vr, Vg, atol=1e-5 * np.abs(Vg).max())
+
+
+def test_jax_and_port_decimations_give_one_log():
+    """Both packages' engines (the port's copy of ssp.cpp) write the same log."""
+    V, F = icosphere(3)
+    ok, *_rest, log = SSP_decimate(V, F, 320, 1)
+    okj, *_restj, logj = jax_decimate(V, F, 320, 1)
+    assert ok and okj and sorted(log) == sorted(logj)
+    for k in log:
+        assert np.array_equal(log[k], logj[k]), k
