@@ -19,7 +19,15 @@ NVIDIA H100. Module names mirror the JAX package. It carries these paths:
   package's npz formats (``ssp.decimate.save_log``, ``save_hierarchy``),
   the device hierarchies with torch (``save_device_hierarchy``);
 - the command line, ``python -m surface_multigrid_code_torch <cmd>``
-  (``cli.py``: decimate, hierarchy, solve, mcf, remesh).
+  (``cli.py``: decimate, hierarchy, solve, mcf, remesh);
+- the multi-device paths (``parallel/``), SPMD over a torch.distributed
+  process group: ``HaloHierarchy`` (each rank's rows of every level, the
+  halo exchanged per SpMV, a column-partitioned restriction into small
+  levels, the replicated coarse solve; ``solve`` and the refreshed
+  ``solve_values``), ``ShardedMCFStepper`` and ``ShardedBalloonNewton``
+  (with ``parallel.balloon.implicit_euler_mg_balloon_sharded``); the
+  ranks start with ``parallel.comm.spawn_ranks`` / ``RankPool`` or any
+  launcher that initialises the group.
 
 Host precompute (SSP decimation in the port's copy of the C++ engine,
 ``native/``, Laplacians, Galerkin plans, colorings) is numpy/scipy; every
@@ -30,6 +38,9 @@ package.
 
 from surface_multigrid_code_torch.config import MGConfig, SolveConfig
 from surface_multigrid_code_torch.models.mcf import MCFStepper
+from surface_multigrid_code_torch.parallel.balloon import ShardedBalloonNewton
+from surface_multigrid_code_torch.parallel.halo import HaloHierarchy
+from surface_multigrid_code_torch.parallel.mcf import ShardedMCFStepper
 from surface_multigrid_code_torch.query.maps import query_coarse_to_fine, query_fine_to_coarse
 from surface_multigrid_code_torch.solver.hierarchy import (
     load_hierarchy,
@@ -51,10 +62,13 @@ from surface_multigrid_code_torch.ssp.decimate import SSP_decimate
 __version__ = "0.1.0"
 
 __all__ = [
+    "HaloHierarchy",
     "MCFStepper",
     "MGConfig",
     "RefreshableMGSolver",
     "SSP_decimate",
+    "ShardedBalloonNewton",
+    "ShardedMCFStepper",
     "SolveConfig",
     "load_device_hierarchy",
     "load_hierarchy",

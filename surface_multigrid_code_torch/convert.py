@@ -25,6 +25,10 @@ and scipy matrices; no JAX type) into the port's, so both packages run on
 one SSP hierarchy; a refreshed hierarchy (the leaves of the JAX
 ``RefreshableMGSolver._refresh_impl``) goes through ``hierarchy_from_jax``.
 
+``halo_rank_from_jax`` takes a JAX ``parallel.halo.HaloHierarchy``'s
+per-device arrays and returns one rank's levels of the port's
+``parallel.halo.HaloHierarchy``, so both packages run from the same plan.
+
 ``bsr_hierarchy_from_jax`` does the same for a ``solver.bsr.BsrHierarchy``
 (the balloon's block multigrid), and ``shell_state_from_jax`` copies a JAX
 ``ShellEnergy``'s rest state (``abars``, ``bbars``) into a port
@@ -41,6 +45,7 @@ import torch
 from surface_multigrid_code_torch.config import DecimationType
 from surface_multigrid_code_torch.models.shell import ShellEnergy
 from surface_multigrid_code_torch.ops.sparse import BSRMatrix, CSRMatrix, csr_from_scipy
+from surface_multigrid_code_torch.parallel.halo import HaloLevel
 from surface_multigrid_code_torch.solver.bsr import BsrHierarchy, BsrLevel
 from surface_multigrid_code_torch.solver.hierarchy import MGLevel
 from surface_multigrid_code_torch.solver.vcycle import DeviceHierarchy, DeviceLevel
@@ -148,3 +153,60 @@ def shell_state_from_jax(shell: ShellEnergy, abars: np.ndarray,
     if bbars is not None:
         shell.bbars = _t(bbars, shell.device, torch.float64)
     return shell
+
+
+def _ell_rows_to_csr(idx, dat, keep, n_cols, device, dtype) -> tuple[CSRMatrix, np.ndarray]:
+    """ELL rows -> CSR keeping the ``keep`` slots in row-major order (the
+    order the JAX package filled them: its rows' CSR order); also returns
+    the kept slots' flat positions."""
+    idx, dat, keep = np.asarray(idx), np.asarray(dat, dtype=np.float64), np.asarray(keep)
+    indptr = np.concatenate([[0], np.cumsum(keep.sum(axis=1))]).astype(np.int32)
+    flat = np.flatnonzero(keep.reshape(-1))
+    return CSRMatrix(
+        torch.as_tensor(indptr, device=device),
+        torch.as_tensor(idx.reshape(-1)[flat].astype(np.int32), device=device),
+        _t(dat.reshape(-1)[flat], device, dtype),
+        n_cols,
+    ), flat
+
+
+def halo_rank_from_jax(levels: list[dict], coarse_inv: np.ndarray, rank: int, D: int,
+                       device, dtype: torch.dtype) -> tuple[list[HaloLevel], torch.Tensor]:
+    """One rank's levels of the port's row-partitioned hierarchy from a JAX
+    ``HaloHierarchy`` (numpy arrays of its ``levels`` and ``coarse_inv``).
+
+    Per level, ``levels[lv]`` holds the device-stacked arrays: "send"
+    [D, S], "A_idx" / "A_dat" [D*R, w] (ELL over the local address space),
+    "diag" [D*R], "P_idx" / "P_dat" and "PT_idx" / "PT_dat" (None at the
+    coarsest level), "lam_max", and the refresh maps "A_src" [D*R, w] and
+    "diag_src" [D*R] (the JAX object's ``_A_srcs`` / ``_diag_srcs``). ELL
+    padding is dropped: the A slots whose A_src is -1, and every
+    zero-valued P / Pᵀ slot, as the JAX layout pads them. Returns the
+    levels and this rank's rows of the coarse inverse."""
+    sizes = [np.asarray(lv["diag"]).shape[0] // D for lv in levels]
+    out = []
+    for lv, d in enumerate(levels):
+        R, send = sizes[lv], np.asarray(d["send"])
+        S = send.shape[1]
+        rows = slice(rank * R, (rank + 1) * R)
+        idx, dat = np.asarray(d["A_idx"])[rows], np.asarray(d["A_dat"])[rows]
+        src = np.asarray(d["A_src"])[rows]
+        A, flat = _ell_rows_to_csr(idx, dat, src != -1, R + D * S, device, dtype)
+        P = PT = None
+        if d.get("P_idx") is not None:
+            Rc, Sc = sizes[lv + 1], np.asarray(levels[lv + 1]["send"]).shape[1]
+            pdat = np.asarray(d["P_dat"])[rows]
+            P, _ = _ell_rows_to_csr(np.asarray(d["P_idx"])[rows], pdat, pdat != 0.0,
+                                    Rc + D * Sc, device, dtype)
+            crow = slice(rank * Rc, (rank + 1) * Rc)
+            tdat = np.asarray(d["PT_dat"])[crow]
+            PT, _ = _ell_rows_to_csr(np.asarray(d["PT_idx"])[crow], tdat, tdat != 0.0,
+                                     R + D * S, device, dtype)
+        ids = (lambda a: torch.as_tensor(np.array(a, dtype=np.int64), device=device))
+        lam = d.get("lam_max")
+        diag = _t(np.asarray(d["diag"])[rows], device, dtype)
+        out.append(HaloLevel(R, S, ids(send[rank]), A, diag, ids(src.reshape(-1)[flat]),
+                             ids(np.asarray(d["diag_src"])[rows]), P, PT, False,
+                             None if lam is None else float(lam)))
+    RL = sizes[-1]
+    return out, _t(np.asarray(coarse_inv)[rank * RL:(rank + 1) * RL], device, dtype)

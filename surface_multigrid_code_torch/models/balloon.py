@@ -365,11 +365,13 @@ class BalloonNewtonSolver:
     shell Hessians go indefinite under large deformation, and the
     SPD-assuming multigrid then diverges). cfg: multicolor GS unless given
     (the reference's smoother family; the interleaved block patterns need
-    about 21 colors).
+    about 21 colors). build_solver=False: the assembly only, with
+    ``solver`` None (the row-partitioned ``parallel/balloon.py`` solves
+    through its own hierarchy).
     """
 
     def __init__(self, shell: ShellEnergy, M: sp.csr_matrix, mg, cfg=None,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, build_solver: bool = True):
         device = shell.device
         if dtype is None:
             dtype = torch.float64 if device.type == "cpu" else torch.float32
@@ -391,7 +393,8 @@ class BalloonNewtonSolver:
         self.F = torch.as_tensor(shell.F, dtype=torch.int64, device=device)
         self.abars = shell.abars.to(dtype)
         self.bend = shell.bend_state(dtype)
-        self.solver = RefreshableMGSolver(mg, pattern, cfg=cfg, dtype=dtype, device=device)
+        self.solver = (RefreshableMGSolver(mg, pattern, cfg=cfg, dtype=dtype, device=device)
+                       if build_solver else None)
         self.last_newton: list[dict] = []
 
     def hessian_values(self, x_flat, dt: float) -> torch.Tensor:

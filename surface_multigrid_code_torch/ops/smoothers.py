@@ -82,25 +82,28 @@ def chebyshev_smooth(
     u: torch.Tensor,
     degree: int = 2,
     lam_ratio: float = 4.0,
+    x_of=None,
 ) -> torch.Tensor:
     """Chebyshev-accelerated Jacobi smoothing of the given polynomial degree.
 
     Damps the error on the D^-1 A spectrum interval
     [lam_max / lam_ratio, lam_max] (Adams et al.). Per step: one fused
-    scaled residual D^-1 (b - A u) plus axpys.
+    scaled residual D^-1 (b - A u) plus axpys. ``x_of(u)`` is the vector A
+    reads (the row-partitioned hierarchy's halo exchange); u by default.
     """
+    x_of = x_of or (lambda v: v)
     lam_min = lam_max / lam_ratio
     theta = 0.5 * (lam_max + lam_min)
     delta = 0.5 * (lam_max - lam_min)
 
-    r = fused_spmv(A, u, epi="resid_scaled", b=b, s=dinv)
+    r = fused_spmv(A, x_of(u), epi="resid_scaled", b=b, s=dinv)
     d = r / theta
     u = u + d
     sigma = theta / delta
     rho = 1.0 / sigma
     for _ in range(degree - 1):
         rho_new = 1.0 / (2.0 * sigma - rho)
-        r = fused_spmv(A, u, epi="resid_scaled", b=b, s=dinv)
+        r = fused_spmv(A, x_of(u), epi="resid_scaled", b=b, s=dinv)
         d = rho_new * rho * d + (2.0 * rho_new / delta) * r
         u = u + d
         rho = rho_new
@@ -113,6 +116,9 @@ def jacobi_sweep(
     b: torch.Tensor,
     u: torch.Tensor,
     weight: float = 2.0 / 3.0,
+    x_of=None,
 ) -> torch.Tensor:
-    """One damped-Jacobi sweep: u + w * D^-1 (b - A u), as one fused call."""
-    return fused_spmv(A, u, epi="axpby", u=u, b=b, s=dinv, escale=weight)
+    """One damped-Jacobi sweep: u + w * D^-1 (b - A u), as one fused call;
+    ``x_of`` as for ``chebyshev_smooth``."""
+    x = u if x_of is None else x_of(u)
+    return fused_spmv(A, x, epi="axpby", u=u, b=b, s=dinv, escale=weight)

@@ -69,6 +69,35 @@ def test_mg_precompute_bitwise_on_icosphere4():
         _same_csr(lv.PT, lj.PT)
 
 
+def test_orderings_bitwise_on_icosphere4():
+    """finest_rcm, induced_orderings, permute_hierarchy and
+    nnz_permutation_map on icosphere(4)'s hierarchy give the JAX package's
+    arrays bit for bit."""
+    from surface_multigrid_code_tpu.solver import ordering as jord
+
+    from surface_multigrid_code_torch.solver import ordering as tord
+
+    V, F = icosphere(4)
+    mg = mg_precompute(V, F, verbose=False)
+    A = (tlap.massmatrix(V, F) - 0.01 * tlap.cotmatrix(V, F)).tocsr()
+    Ps = [lv.P_full.tocsr() for lv in mg[1:]]
+    As = [A]
+    for P in Ps:
+        As.append((P.T @ As[-1] @ P).tocsr())
+    p0 = tord.finest_rcm(A)
+    assert np.array_equal(p0, jord.finest_rcm(A))
+    perms, permsj = tord.induced_orderings(p0, Ps), jord.induced_orderings(p0, Ps)
+    assert len(perms) == len(permsj) == len(As) >= 2
+    for a, b in zip(perms, permsj):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    ours, theirs = tord.permute_hierarchy(As, Ps, perms), jord.permute_hierarchy(As, Ps, perms)
+    for a, b in zip(ours, theirs):
+        for x, y in zip(a, b):
+            _same_csr(x, y)
+            assert np.array_equal(x.data, y.data)
+    assert np.array_equal(tord.nnz_permutation_map(A, p0), jord.nnz_permutation_map(A, p0))
+
+
 def test_mg_precompute_block_bitwise_on_icosphere3():
     """mg_precompute_block (3-expanded prolongations on xyz-interleaved
     DOFs) gives the JAX package's levels bit for bit."""
@@ -138,7 +167,9 @@ def test_port_imports_no_jax():
         "       or m.startswith('surface_multigrid_code_tpu')]\n"
         "assert not bad, bad\n"
         "assert len(names) >= 20, names\n"
-        "for need in ('cli', 'query.device', 'solver.serialize', 'utils.upsample'):\n"
+        "for need in ('cli', 'query.device', 'solver.serialize', 'utils.upsample',\n"
+        "             'solver.ordering', 'parallel.comm', 'parallel.halo', 'parallel.mcf',\n"
+        "             'parallel.balloon'):\n"
         "    assert pkg.__name__ + '.' + need in names, need\n"
         "print(len(names))\n"
     )
