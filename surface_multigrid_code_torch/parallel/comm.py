@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import pickle
 import queue
 import tempfile
 import traceback
@@ -193,13 +194,13 @@ def _serve(dev, tasks, results):
         task = tasks[rank].get()
         if task is None:
             return None
-        fn, d, args = task
+        fn, d, args = pickle.loads(task)  # the pool's own bytes (RankPool.run)
         if d not in groups:  # every rank creates every group, in one order
             groups[d] = None if d == world else dist.new_group(list(range(d)))
         try:
-            out = (True, fn(groups[d], dev, *args) if rank < d else None)
+            out = pickle.dumps((True, fn(groups[d], dev, *args) if rank < d else None))
         except Exception:
-            out = (False, traceback.format_exc())
+            out = pickle.dumps((False, traceback.format_exc()))
         results.put((rank, out))
 
 
@@ -223,12 +224,16 @@ class RankPool:
     def run(self, fn, d: int, *args) -> list:
         if not 1 <= d <= self.D:
             raise ValueError(f"a task on {d} ranks in a pool of {self.D}")
+        # pickled here, and the results on the ranks, so that what does not
+        # pickle raises at once instead of leaving the other side waiting
+        task = pickle.dumps((fn, d, args))
         for q in self._tasks:
-            q.put((fn, d, args))
+            q.put(task)
         got, failed = {}, []
         try:
             for _ in range(self.D):
-                rank, (ok, value) = self._results.get(timeout=self.timeout)
+                rank, out = self._results.get(timeout=self.timeout)
+                ok, value = pickle.loads(out)
                 if ok:
                     got[rank] = value
                 else:

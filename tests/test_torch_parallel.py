@@ -248,6 +248,21 @@ def test_sharded_balloon_matches_jax(pool):
     assert np.abs(pos - pj).max() < TOL * scale
 
 
+def test_default_device_is_the_card(pool, system):
+    """Like every entry point of the port, the sharded ones run on the card
+    unless given device="cpu": without one they raise on every rank."""
+    from surface_multigrid_code_torch.solver.hierarchy import MGLevel
+    from surface_multigrid_code_torch.utils.synthetic import subdivision_hierarchy
+
+    As, Ps, _ = system
+    meshes, Psub = subdivision_hierarchy(2)
+    mg = [MGLevel(V=V, F=F, P_full=P) for (V, F), P in zip(meshes, [None, *Psub])]
+    for msgs in pool.run(ranks.default_device, 2, As, Ps, *meshes[0], mg):
+        assert len(msgs) == 2
+        for msg in msgs:
+            assert msg is not None and "device 'cuda'" in msg and "device='cpu'" in msg
+
+
 def test_multicolor_gs_raises(system):
     As, Ps, _ = system
     with pytest.raises(ValueError, match="multicolor"):

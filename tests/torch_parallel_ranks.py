@@ -110,3 +110,19 @@ def balloon(group, dev, V, F, young, poisson, mg, dt, pressure, g_tol, n_newton,
         shell, M, V.copy(), np.zeros(3 * V.shape[0]), fExt, dt, mg, group,
         mg_tolerance=step_tol, n_newton=n_newton, newton_solver=ns, verbose=False)
     return dx, r_his, ok, pos, ns.last_newton
+
+
+def default_device(group, dev, As, Ps, V, F, mg):
+    """What HaloHierarchy and ShardedMCFStepper raise when no device is
+    given on a machine without a card (None where one did not raise)."""
+    from surface_multigrid_code_torch.parallel.mcf import ShardedMCFStepper
+
+    out = []
+    for build in (lambda: halo.HaloHierarchy(As, Ps, group=group),
+                  lambda: ShardedMCFStepper(V, F, mg, group=group)):
+        try:
+            build()
+            out.append(None)
+        except RuntimeError as e:
+            out.append(str(e))
+    return out
