@@ -34,7 +34,14 @@ paths through their public entry points:
   subdivided ogre (3 steps) and ``ShardedBalloonNewton`` on bunny_15K (the
   Newton direction at rest in f64 and f32, one f64 step), each held to its
   single-device counterpart, and K1/K2 held to the plain version at every
-  rank's own operators.
+  rank's own operators;
+- phase 16, on the same ranks: the band-segment backend
+  (``WellHaloHierarchy``: the static ico7 solve on 2 and 4 ranks, Jacobi
+  and Chebyshev, [n, 3] on 4; ``ShardedMCFStepper`` and
+  ``ShardedBalloonNewton`` with ``backend="well"``, the sharded value
+  refresh) and the GSPMD layout (``sharded_solve`` on 4), each held to
+  its single-device counterpart and to phase 15's run, and K1/K2 held to
+  the plain version at every rank's operators and G_l maps.
 
 Each path runs with the kernels' launch counts set to 0 just before it
 and read just after: it must have launched its kernels, and no plain
@@ -48,6 +55,11 @@ times), and ends with
 
 Any failure raises, so the exit code is non-zero and that line is not
 printed. Without a CUDA device it fails at once.
+
+Two opt-in runs print their own records instead: ``--gloo-p2p`` (do
+gloo's point-to-point operations take CUDA tensors) and ``--nccl`` (on a
+machine with 4 cards: phase 16's static ico7 solve with one rank per
+card over NCCL).
 """
 
 from __future__ import annotations
@@ -2036,10 +2048,10 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def check_rank_csr(S, label, dev, errs, rng, Cs=(1, 3)):
+def check_rank_csr(S, label, dev, errs, rng, Cs=(1, 3), epis=EPIS):
     """K1/K2 against the plain version on a rank's own operator S (its CSR
-    as built: local column ids in the global order), f32 and f64, every
-    epilogue, each C of Cs. Returns the number of cases."""
+    as built: local column ids in the global order), f32 and f64, each
+    epilogue of epis, each C of Cs. Returns the number of cases."""
     from surface_multigrid_code_torch.ops.sparse import CSRMatrix
     from surface_multigrid_code_torch.ops.spmv import fused_spmv, fused_spmv_plain
 
@@ -2055,7 +2067,7 @@ def check_rank_csr(S, label, dev, errs, rng, Cs=(1, 3)):
             shp = (n,) if C == 1 else (n, C)
             x = t(rng.standard_normal((m,) if C == 1 else (m, C)))
             u, b = t(rng.standard_normal(shp)), t(rng.standard_normal(shp))
-            for epi in EPIS:
+            for epi in epis:
                 kw = dict(epi=epi, b=b, u=u, s=s, escale=2.0 / 3.0)
                 _compare(fused_spmv(Sd, x, **kw), fused_spmv_plain(Sd, x, **kw), dt,
                          f"{label} ({n} x {m}) C={C} {dt} epi={epi}, lanes "
@@ -2064,26 +2076,52 @@ def check_rank_csr(S, label, dev, errs, rng, Cs=(1, 3)):
     return cases
 
 
-def rank_static(group, dev, As, Ps, smoother, rhs, tol, check):
-    """A rank of the static sharded solve (f32): build, solve counted, one
-    more V-cycle for the bytes each level sends; with ``check``, K1/K2 on
-    every operator of this rank against the plain version."""
+def rank_static(group, dev, As, Ps, smoother, rhs, tol, check, backend="halo"):
+    """A rank of the static sharded solve (f32) on ``backend``: "halo"
+    (``HaloHierarchy``, phase 15), "well" (``WellHaloHierarchy``) or "spmd"
+    (``build_sharded_hierarchy`` / ``sharded_solve``): build, solve
+    counted, one more V-cycle for the bytes each level sends and the
+    collectives it makes; with ``check``, K1/K2 on every operator of this
+    rank against the plain version."""
+    import collections
+
     from surface_multigrid_code_torch.config import SmootherType, SolveConfig
     from surface_multigrid_code_torch.parallel.halo import HaloHierarchy
+    from surface_multigrid_code_torch.parallel.spmd import build_sharded_hierarchy, sharded_solve
+    from surface_multigrid_code_torch.parallel.wellhalo import WellHaloHierarchy
 
-    h, build_s = timed(lambda: HaloHierarchy(
-        As, Ps, SolveConfig(smoother=SmootherType(smoother)), torch.float32, dev, group))
+    cfg = SolveConfig(smoother=SmootherType(smoother))
+    make = {"halo": lambda: (HaloHierarchy(As, Ps, cfg, torch.float32, dev, group), None),
+            "well": lambda: (WellHaloHierarchy(As, Ps, cfg, torch.float32, dev, group), None),
+            "spmd": lambda: build_sharded_hierarchy(As, Ps, cfg, torch.float32, dev, group)}
+    (h, sizes), build_s = timed(make[backend])
     reset_rank_counts()
-    (z, r_his, ok), solve_s = timed(lambda: h.solve(rhs, tolerance=tol, max_iter=20))
+    if backend == "spmd":
+        (z, r_his, _), solve_s = timed(lambda: sharded_solve(h, sizes, rhs, tolerance=tol,
+                                                             max_iter=20))
+        ok = r_his[-1] <= tol
+    else:
+        (z, r_his, ok), solve_s = timed(lambda: h.solve(rhs, tolerance=tol, max_iter=20))
     counts = rank_counts()
     h.sent_bytes = [0] * len(h.levels)
     b = h.local_rows(rhs)
+    before = collections.Counter(h.comm.counts)
     h.vcycle(b, torch.zeros_like(b))
+    C = 1 if rhs.ndim == 1 else rhs.shape[1]
+    levels = []
+    for lv, nb in zip(h.levels, h.sent_bytes):
+        rec = {"R": lv.R, "nnz": int(lv.A.data.shape[0]), "pt_cols": lv.pt_cols,
+               "bytes_per_cycle": nb}
+        if backend == "halo":
+            rec["S"] = lv.S
+        else:
+            rec.update(lo=lv.lo, hi=lv.hi, mode=lv.mode,
+                       bytes_per_exchange=h.exchange_bytes(len(levels), 4, C))
+        levels.append(rec)
     rec = {"rank": h.rank, "ranks": h.D, "backend": h.comm.backend, "device": str(dev),
            "build_s": build_s, "solve_s": solve_s, "residuals": r_his, "converged": ok,
-           "counts": counts, "levels": [
-               {"R": lv.R, "S": lv.S, "nnz": int(lv.A.data.shape[0]), "pt_cols": lv.pt_cols,
-                "bytes_per_cycle": nb} for lv, nb in zip(h.levels, h.sent_bytes)]}
+           "counts": counts, "levels": levels,
+           "collectives_per_cycle": dict(h.comm.counts - before)}
     if check:
         errs, rng, cases = {}, np.random.default_rng(100 + h.rank), 0
         for lv, level in enumerate(h.levels):
@@ -2100,29 +2138,76 @@ def rank_static(group, dev, As, Ps, smoother, rhs, tol, check):
     return rec
 
 
-def rank_mcf(group, dev, V, F, mg, n_steps):
-    """A rank of ShardedMCFStepper (Jacobi, f32): n_steps steps from V."""
+def refresh_ms(h, vals, reps=3):
+    """The least of reps host times of h.refresh(vals), closed by a sync."""
+    return min(1e3 * timed(lambda: h.refresh(vals))[1] for _ in range(reps))
+
+
+def check_chain(h, dev, seed):
+    """K1 against the plain version on this rank's G_l of a WellHaloHierarchy
+    with refresh (the only epilogue the chain uses: none, one column)."""
+    errs, rng, cases = {}, np.random.default_rng(seed + h.rank), 0
+    for lv, ch in enumerate(h._refresh["chain"]):
+        cases += check_rank_csr(ch["G"], f"rank {h.rank} G_{lv + 1}", dev, errs, rng, Cs=(1,),
+                                epis=(None,))
+    sync()
+    return errs, cases
+
+
+def chain_shapes(h):
+    """Per G_l of this rank: rows, columns, nnz, longest row, exchange, and
+    the bound of its K1 launch (spmv_bytes in the chain's type)."""
+    out = []
+    for ch in h._refresh["chain"]:
+        G = ch["G"]
+        nbytes, flops = spmv_bytes(host_csr(G), 1, None, itemsize=G.data.element_size())
+        out.append({"rows": G.n_rows, "cols": G.n_cols, "nnz": int(G.data.shape[0]),
+                    "max_row": int(G.indptr.diff().max()) if G.n_rows else 0,
+                    "lo": ch["lo"], "hi": ch["hi"], "replicated": ch["rep"],
+                    "bytes": nbytes, "bound_ms": bound_ms(nbytes, flops,
+                                                          G.data.dtype == torch.float64)[0]})
+    return out
+
+
+def rank_mcf(group, dev, V, F, mg, n_steps, backend="halo", check=False):
+    """A rank of ShardedMCFStepper (Jacobi, f32) on ``backend``: n_steps
+    steps from V, then the refresh of the last step's values timed; with
+    ``check`` (backend "well"), K1 on every G_l of this rank."""
     from surface_multigrid_code_torch.config import SmootherType, SolveConfig
-    from surface_multigrid_code_torch.parallel.mcf import ShardedMCFStepper
+    from surface_multigrid_code_torch.parallel.mcf import ShardedMCFStepper, _barycentric_mass
 
     st, build_s = timed(lambda: ShardedMCFStepper(
         V, F, mg, cfg=SolveConfig(smoother=SmootherType.JACOBI), dtype=torch.float32,
-        device=dev, group=group))
+        device=dev, group=group, backend=backend))
     reset_rank_counts()
     U, steps = V, []
     for _ in range(n_steps):
         (U, r_his, ok), wall = timed(lambda: st.step(U))
         steps.append({"residuals": r_his, "converged": ok, "wall_s": wall,
                       "U": U if st.halo.rank == 0 else None})
-    return {"rank": st.halo.rank, "backend": st.halo.comm.backend, "build_s": build_s,
-            "counts": rank_counts(), "steps": steps,
-            "levels": [(lv.R, lv.S, lv.pt_cols) for lv in st.halo.levels]}
+    counts = rank_counts()
+    vals = st._L_vals.copy()
+    vals[st._diag_slots] += _barycentric_mass(U, st.F)
+    h = st.halo
+    rec = {"rank": h.rank, "backend": h.comm.backend, "build_s": build_s,
+           "counts": counts, "steps": steps, "refresh_ms": refresh_ms(h, vals),
+           "levels": [(lv.R, lv.S, lv.pt_cols) if backend == "halo"
+                      else (lv.R, lv.lo, lv.hi, lv.mode) for lv in h.levels]}
+    if backend == "well":
+        rec["chain"] = chain_shapes(h)
+    if check:
+        rec["errs"], rec["cases"] = check_chain(h, dev, 300)
+    return rec
 
 
-def rank_balloon(group, dev, V, F, mg, g_rel_tol):
-    """A rank of ShardedBalloonNewton at example 06's defaults: the Newton
-    direction at rest in f64 and f32 (solved to g_rel_tol[dtype] * ||g|| or
-    20 cycles), then one f64 implicit_euler_mg_balloon_sharded step from rest."""
+def rank_balloon(group, dev, V, F, mg, g_rel_tol, backend="halo", dtypes=("f64", "f32"),
+                 check=False):
+    """A rank of ShardedBalloonNewton on ``backend`` at example 06's
+    defaults: the Newton direction at rest in each of dtypes (solved to
+    g_rel_tol[dtype] * ||g|| or 20 cycles) and the refresh of its values
+    timed, then one f64 implicit_euler_mg_balloon_sharded step from rest;
+    with ``check`` (backend "well"), K1 on every G_l of this rank (f64
+    solver's chain)."""
     from surface_multigrid_code_torch.models.balloon import inflation_force
     from surface_multigrid_code_torch.parallel.balloon import (
         ShardedBalloonNewton,
@@ -2135,21 +2220,27 @@ def rank_balloon(group, dev, V, F, mg, g_rel_tol):
     fExt = inflation_force(V, F, d["pressure"])
     g = -(dt * shell.gradient(V.reshape(-1)) + dt * fExt)
     out = {}
-    for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+    for name in dtypes:
+        dtype = {"f64": torch.float64, "f32": torch.float32}[name]
         ns, build_s = timed(lambda: ShardedBalloonNewton(shell, M, mg, dt, dtype=dtype,
-                                                         group=group))
+                                                         group=group, backend=backend))
         reset_rank_counts()
         vals = ns.hessian_values(V.reshape(-1), dt)
         (dx, r_his, ok), solve_s = timed(lambda: ns.solve(
             vals, g, tolerance=g_rel_tol[name] * float(np.linalg.norm(g)), max_iter=20))
         rec = {"build_s": build_s, "solve_s": solve_s, "residuals": r_his, "converged": ok,
-               "counts": rank_counts(), "dx": dx if ns.halo.rank == 0 else None}
+               "counts": rank_counts(), "dx": dx if ns.halo.rank == 0 else None,
+               "refresh_ms": refresh_ms(ns.halo, vals)}
+        if backend == "well":
+            rec["chain"] = chain_shapes(ns.halo)
+        if check and name == "f64":
+            rec["errs"], rec["cases"] = check_chain(ns.halo, dev, 400)
         if name == "f64":
             reset_rank_counts()
             (pos, _, _), step_s = timed(lambda: implicit_euler_mg_balloon_sharded(
                 shell, M, V.copy(), np.zeros(3 * V.shape[0]), fExt, dt, mg, group,
                 mg_tolerance=d["mg_tolerance"], n_newton=d["n_newton"], newton_solver=ns,
-                verbose=False))
+                verbose=False, backend=backend))
             rec.update(step_s=step_s, step_counts=rank_counts(), newton=ns.last_newton,
                        pos=pos if ns.halo.rank == 0 else None)
         out[name] = rec
@@ -2166,18 +2257,21 @@ def rank_ready(group, dev):
         _build.load_library()
 
 
-def rank_collectives(group, dev, sizes, reps):
-    """Host seconds per call of Comm.exchange (publishing n floats of a
-    CUDA tensor) and Comm.allreduce_sum (n floats), for n in sizes, each
-    over reps calls after a warm-up, closed by a device sync."""
+def rank_collectives(group, dev, sizes, reps, names=("exchange", "allreduce_sum")):
+    """Host seconds per call of each of names: Comm.exchange (publishing n
+    floats of a CUDA tensor), Comm.allreduce_sum (n floats), Comm.shift (n
+    floats to each neighbour), for n in sizes, each over reps calls after a
+    warm-up, closed by a device sync."""
     from surface_multigrid_code_torch.parallel.comm import Comm
 
     comm, out = Comm(group), {}
     for n in sizes:
         x = torch.ones(n, dtype=torch.float32, device=dev)
         send = torch.arange(n, device=dev)
-        for name, fn in (("exchange", lambda: comm.exchange(x, send)),
-                         ("allreduce_sum", lambda: comm.allreduce_sum(x.clone()))):
+        fns = {"exchange": lambda: comm.exchange(x, send),
+               "allreduce_sum": lambda: comm.allreduce_sum(x.clone()),
+               "shift": lambda: comm.shift(x, n, n)}
+        for name, fn in ((k, fns[k]) for k in names):
             for _ in range(5):
                 fn()
             _, wall = timed(lambda: [fn() for _ in range(reps)])
@@ -2215,6 +2309,16 @@ def ranks_held(recs, what, kernels):
     return [rec["counts"] for rec in recs]
 
 
+def ico_chain(mg, A):
+    """bench.py's operators at ico7: the Galerkin chain of A over the SSP
+    prolongations (scipy's numeric product), and the prolongations."""
+    Ps = [lv.P_full.tocsr() for lv in mg[1:]]
+    As = [A]
+    for P in Ps:
+        As.append((P.T @ As[-1] @ P).tocsr())
+    return As, Ps
+
+
 def sharded_static(pool, V, mg, A, M, dev):
     """Phase 15a: the static solve (bench.py's operators at ico7) on D =
     1, 2, 4 ranks, Jacobi and Chebyshev, and [n, 3] on 4 ranks (Jacobi),
@@ -2222,10 +2326,7 @@ def sharded_static(pool, V, mg, A, M, dev):
     from surface_multigrid_code_torch.config import SmootherType, SolveConfig
     from surface_multigrid_code_torch.solver.vcycle import build_device_hierarchy, solve_loop
 
-    Ps = [lv.P_full.tocsr() for lv in mg[1:]]
-    As = [A]
-    for P in Ps:
-        As.append((P.T @ As[-1] @ P).tocsr())
+    As, Ps = ico_chain(mg, A)
     b = np.asarray(M @ V[:, 0])
     runs = [(sm, D, b) for sm in ("jacobi", "chebyshev") for D in SHARDED_RANKS]
     runs.append(("jacobi", 4, np.stack([b, -2.0 * b, 0.5 * b], axis=1)))
@@ -2253,7 +2354,8 @@ def sharded_static(pool, V, mg, A, M, dev):
                "max_rel_gap": gap, "host_residual": res, "launches_per_rank": counts,
                "build_s": [r["build_s"] for r in recs], "solve_s": [r["solve_s"] for r in recs],
                "levels": recs[0]["levels"],
-               "bytes_per_cycle": [[lv["bytes_per_cycle"] for lv in r["levels"]] for r in recs]}
+               "bytes_per_cycle": [[lv["bytes_per_cycle"] for lv in r["levels"]] for r in recs],
+               "collectives_per_cycle": recs[0]["collectives_per_cycle"]}
         if check:
             for r in recs:
                 for name, e in r["errs"].items():
@@ -2278,28 +2380,35 @@ def sharded_static(pool, V, mg, A, M, dev):
     return out, launches, errs
 
 
-def sharded_mcf(pool, meshes, dev):
-    """Phase 15b: ShardedMCFStepper (Jacobi, f32) on 4 ranks,
-    MCF_SHARDED_STEPS steps, each held to one step of the single-device
-    MCFStepper with Jacobi from the same input (the sharded flow's
-    previous step): in f32 Jacobi does not reach the tolerance in 20
-    cycles on these meshes, and two flows apart by that much would not
-    solve the same system from the second step on."""
+def sharded_mcf(pool, meshes, dev, backend="halo", phase="phase 15"):
+    """Phase 15b (16b with backend "well"): ShardedMCFStepper (Jacobi, f32)
+    on 4 ranks, MCF_SHARDED_STEPS steps, each held to one step of the
+    single-device MCFStepper with Jacobi from the same input (the sharded
+    flow's previous step): in f32 Jacobi does not reach the tolerance in
+    20 cycles on these meshes, and two flows apart by that much would not
+    solve the same system from the second step on. With "well", K1 is
+    held to its plain version on every rank's G_l. Returns ({label:
+    record}, launches summed over the ranks, K1 max abs errors)."""
     from surface_multigrid_code_torch import MCFStepper
     from surface_multigrid_code_torch.config import SmootherType, SolveConfig
     from surface_multigrid_code_torch.parallel.mcf import _barycentric_mass
 
-    out, launches = {}, {}
+    well = backend == "well"
+    out, launches, errs = {}, {}, {}
     for name, subdivide in MCF_SHARDED:
         label = mcf_label(name, subdivide)
         V, F, mg = meshes[label]
-        recs = pool.run(rank_mcf, 4, V, F, mg, MCF_SHARDED_STEPS)
+        recs = pool.run(rank_mcf, 4, V, F, mg, MCF_SHARDED_STEPS, backend, well)
+        what = f"{phase}: sharded MCF {label}" + (" (well)" if well else "")
+        log(f"{what}: build s per rank {[r['build_s'] for r in recs]}, refresh ms per rank "
+            f"{[r['refresh_ms'] for r in recs]}, levels (rank 0) {recs[0]['levels']}"
+            + (f", G_l (rank 0) {recs[0]['chain']}" if well else ""))
         single = MCFStepper(V, F, mg, cfg=SolveConfig(smoother=SmootherType.JACOBI),
                             device=dev)
         inputs = [V] + [st["U"] for st in recs[0]["steps"][:-1]]
         ref = [single.step(U) for U in inputs]
-        what = f"phase 15: sharded MCF {label}"
-        counts = ranks_held(recs, what, ("spmv_fused_planes",))
+        counts = ranks_held(recs, what, ("spmv_fused_planes",) + (("spmv_fused",) if well
+                                                                    else ()))
         add_counts(launches, counts)
         steps = []
         for k, (rs, (U1, r1, ok1)) in enumerate(zip(recs[0]["steps"], ref)):
@@ -2318,16 +2427,21 @@ def sharded_mcf(pool, meshes, dev):
                 f"{rs['converged']} / {ok1}, largest relative gap {gap:.2e}, max|dU| {du:.3e}; "
                 f"step wall {max(steps[-1]['wall_s']):.3f} s")
         out[label] = {"nv": int(V.shape[0]), "levels": recs[0]["levels"], "steps": steps,
-                      "launches_per_rank": counts, "build_s": [r["build_s"] for r in recs]}
-    return out, launches
+                      "launches_per_rank": counts, "build_s": [r["build_s"] for r in recs],
+                      "refresh_ms": [r["refresh_ms"] for r in recs]}
+        if well:
+            out[label]["chain"] = [r["chain"] for r in recs]
+            for r in recs:
+                for k, e in r["errs"].items():
+                    errs[k] = max(errs.get(k, 0.0), e)
+            out[label]["kernel_cases"] = sum(r["cases"] for r in recs)
+    return out, launches, errs
 
 
-def sharded_balloon(pool, V, F, mg, dev):
-    """Phase 15c: ShardedBalloonNewton on 4 ranks at example 06's defaults
-    on bunny_15K: the Newton direction at rest against the single-device
-    BalloonNewtonSolver (Chebyshev, the sharded default) in f64 (held at
-    BALLOON_DIRECTION_GAP) and f32 (reported); then one f64 sharded step
-    against implicit_euler_mg_balloon, 0 rejected iterations in both."""
+def balloon_refs(V, F, mg, dev):
+    """The single-device counterparts of phases 15c and 16c at example
+    06's defaults: the Newton direction at rest (BalloonNewtonSolver,
+    Chebyshev) in f64 and f32, and one f64 implicit_euler_mg_balloon step."""
     from surface_multigrid_code_torch.config import SmootherType, SolveConfig
     from surface_multigrid_code_torch.models.balloon import (
         BalloonNewtonSolver,
@@ -2354,11 +2468,28 @@ def sharded_balloon(pool, V, F, mg, dev):
                 verbose=False)
             ref["step"] = (pos1, ns.last_newton)
         del ns
-    recs = pool.run(rank_balloon, 4, V, F, mg, BALLOON_DIRECTION_TOL)
-    what = "phase 15: sharded balloon bunny_15K"
-    out, launches = {"dofs": 3 * int(V.shape[0])}, {}
-    for name in ("f64", "f32"):
+    return ref
+
+
+def sharded_balloon(pool, V, F, mg, dev, ref, backend="halo", dtypes=("f64", "f32"),
+                    gaps=(BALLOON_DIRECTION_GAP, BALLOON_STEP_GAP), phase="phase 15"):
+    """Phase 15c (16c with backend "well"): ShardedBalloonNewton on 4
+    ranks at example 06's defaults on bunny_15K: the Newton direction at
+    rest against the single-device one of ``ref`` (``balloon_refs``) in
+    f64 (held at gaps[0]) and, where dtypes has it, f32 (reported); then
+    one f64 sharded step against the single-device step (held at gaps[1]),
+    0 rejected iterations in both. With "well", K1 is held to its plain
+    version on every rank's G_l. Returns (record, launches summed over the
+    ranks, K1 max abs errors)."""
+    well = backend == "well"
+    recs = pool.run(rank_balloon, 4, V, F, mg, BALLOON_DIRECTION_TOL, backend, dtypes, well)
+    what = f"{phase}: sharded balloon bunny_15K" + (" (well)" if well else "")
+    out, launches, errs = {"dofs": 3 * int(V.shape[0])}, {}, {}
+    for name in dtypes:
         per = [dict(r["by_dtype"][name], rank=r["rank"]) for r in recs]
+        log(f"{what} {name}: build s per rank {[p['build_s'] for p in per]}, refresh ms per "
+            f"rank {[p['refresh_ms'] for p in per]}"
+            + (f", G_l (rank 0) {per[0]['chain']}" if well else ""))
         counts = ranks_held(per, f"{what} {name} direction", ("spmv_fused", "ns_sign_apply"))
         dx, r_his = per[0]["dx"], per[0]["residuals"]
         dx1, r1, _ = ref[name]
@@ -2366,14 +2497,22 @@ def sharded_balloon(pool, V, F, mg, dev):
         out[name] = {"cycles": len(r_his) - 1, "single_cycles": len(r1) - 1,
                      "residuals": r_his, "single_residuals": r1, "rel_gap": gap,
                      "launches_per_rank": counts, "solve_s": [p["solve_s"] for p in per],
-                     "build_s": [p["build_s"] for p in per]}
+                     "build_s": [p["build_s"] for p in per],
+                     "refresh_ms": [p["refresh_ms"] for p in per]}
+        if well:
+            out[name]["chain"] = [p["chain"] for p in per]
+        if "errs" in per[0]:
+            for p in per:
+                for k, e in p["errs"].items():
+                    errs[k] = max(errs.get(k, 0.0), e)
+            out[name]["kernel_cases"] = sum(p["cases"] for p in per)
         log(f"{what} {name} Newton direction at rest ({recs[0]['backend']}, 4 ranks sharing "
             f"one card): {len(r_his) - 1} cycles (single-device {len(r1) - 1}), residuals "
             f"{r_his[0]:.4e} -> {r_his[-1]:.4e}, relative max|dx - dx_single| {gap:.3e}; "
             f"solve wall {max(out[name]['solve_s']):.3f} s")
         add_counts(launches, counts)
-        if name == "f64" and not gap <= BALLOON_DIRECTION_GAP:
-            raise RuntimeError(f"{what}: f64 direction gap {gap:.3e} > {BALLOON_DIRECTION_GAP}")
+        if name == "f64" and not gap <= gaps[0]:
+            raise RuntimeError(f"{what}: f64 direction gap {gap:.3e} > {gaps[0]}")
     per = [dict(r["by_dtype"]["f64"], rank=r["rank"], counts=r["by_dtype"]["f64"]["step_counts"])
            for r in recs]
     counts = ranks_held(per, f"{what} step", ("spmv_fused", "ns_sign_apply"))
@@ -2391,10 +2530,10 @@ def sharded_balloon(pool, V, F, mg, dev):
         f"single-device step {gap:.3e}, rejected {rejected}, residuals per Newton solve "
         f"{out['step']['residuals']} (single-device {out['step']['single_residuals']}); "
         f"step wall {max(out['step']['step_s']):.3f} s (4 ranks sharing one card)")
-    if not np.isfinite(pos).all() or any(rejected) or not gap <= BALLOON_STEP_GAP:
-        raise RuntimeError(f"{what}: step gap {gap:.3e} (limit {BALLOON_STEP_GAP}), "
+    if not np.isfinite(pos).all() or any(rejected) or not gap <= gaps[1]:
+        raise RuntimeError(f"{what}: step gap {gap:.3e} (limit {gaps[1]}), "
                            f"rejected {rejected}")
-    return out, launches
+    return out, launches, errs
 
 
 def sharded_pool(dev):
@@ -2419,8 +2558,9 @@ def sharded_path(pool, V, mg, A, M, mcf_meshes, Vb, Fb, mg_b, dev):
         log(f"phase 15: gloo on CUDA tensors, {D} ranks sharing one card, ms per call: "
             + ", ".join(f"{k} {1e3 * v:.3f}" for k, v in collectives[D].items()))
     static, launches, errs = sharded_static(pool, V, mg, A, M, dev)
-    mcf, l2 = sharded_mcf(pool, mcf_meshes, dev)
-    balloon, l3 = sharded_balloon(pool, Vb, Fb, mg_b, dev)
+    mcf, l2, _ = sharded_mcf(pool, mcf_meshes, dev)
+    refs = balloon_refs(Vb, Fb, mg_b, dev)
+    balloon, l3, _ = sharded_balloon(pool, Vb, Fb, mg_b, dev, refs)
     add_counts(launches, (l2, l3))
     wall = time.perf_counter() - t0
     log(f"phase 15: {wall:.1f} s (the pool of 4 gloo ranks on one card, started before phase "
@@ -2429,7 +2569,246 @@ def sharded_path(pool, V, mg, A, M, mcf_meshes, Vb, Fb, mg_b, dev):
     return {"static": static, "mcf": mcf, "balloon": balloon, "wall_s": wall,
             "pool_start_s": t_pool, "collectives_s": collectives,
             "note": "D ranks share one card over gloo; the walls say nothing about scaling"}, \
+        launches, errs, refs
+
+
+# ---------------------------------------------------------------- phase 16
+# The band-segment halo hierarchy (parallel/wellhalo.py, the JAX package's
+# default multi-device backend) and the GSPMD layout (parallel/spmd.py) on
+# phase 15's pool. Each static run is held to the single-device solve and
+# to phase 15's HaloHierarchy run of the same (smoother, D, C) by phase
+# 15's bars (held_history); the MCF steps as in phase 15; the balloon's
+# f64 direction at rest at WELL_DIRECTION_GAP of the single-device one and
+# its f64 step at WELL_STEP_GAP of max|disp| (one algorithm: the sharded
+# refresh sums in another order, its Chebyshev bound is the same power
+# iteration), 0 rejects. K1 is held to its plain version on every rank's
+# G_l of the MCF and balloon chains, and K1/K2 on every rank's A, P and Pᵀ
+# of the D = 4 Jacobi and spmd runs.
+WELL_RANKS = (2, 4)
+WELL_DIRECTION_GAP = 1e-12
+WELL_STEP_GAP = 1e-10
+SHIFT_SIZES = (64, 4096, 65536)
+
+
+def well_static(pool, V, mg, A, M, p15):
+    """Phase 16a: WellHaloHierarchy on D = 2 and 4 ranks (Jacobi,
+    Chebyshev), [n, 3] on 4 (Jacobi), and sharded_solve (spmd, Jacobi) on
+    4, each held to the single-device solve and to phase 15's run (the
+    records ``p15``)."""
+    As, Ps = ico_chain(mg, A)
+    b = np.asarray(M @ V[:, 0])
+    runs = [("well", sm, D, b) for sm in ("jacobi", "chebyshev") for D in WELL_RANKS]
+    runs += [("well", "jacobi", 4, np.stack([b, -2.0 * b, 0.5 * b], axis=1)),
+             ("spmd", "jacobi", 4, b)]
+    by_key = {(r["smoother"], r["ranks"], r["C"]): r for r in p15}
+    out, launches, errs = [], {}, {}
+    for backend, sm, D, rhs in runs:
+        C = 1 if rhs.ndim == 1 else rhs.shape[1]
+        b_norm = float(np.linalg.norm(rhs))
+        tol = REL_TOL * b_norm
+        check = backend == "spmd" or (sm == "jacobi" and D == 4 and C == 1)
+        recs = pool.run(rank_static, D, As, Ps, sm, rhs, tol, check, backend)
+        what = f"phase 16: ico7 {backend} {sm} C={C} on {D} ranks"
+        ref = by_key[sm, D, C]
+        r_his = recs[0]["residuals"]
+        rec = {"backend": backend, "smoother": sm, "ranks": D, "C": C, "residuals": r_his,
+               "single_device": ref["single_device"], "phase15": ref["residuals"],
+               "build_s": [r["build_s"] for r in recs], "solve_s": [r["solve_s"] for r in recs],
+               "phase15_solve_s": ref["solve_s"], "levels": recs[0]["levels"],
+               "bytes_per_exchange": [[lv["bytes_per_exchange"] for lv in r["levels"]]
+                                      for r in recs],
+               "bytes_per_cycle": [[lv["bytes_per_cycle"] for lv in r["levels"]] for r in recs],
+               "collectives_per_cycle": recs[0]["collectives_per_cycle"],
+               "phase15_collectives_per_cycle": ref["collectives_per_cycle"]}
+        # what the run sent and how long it took, before its checks
+        log(f"{what} ({recs[0]['backend']}, {D} ranks sharing one card): residuals "
+            f"{r_his[0]:.4e} -> {r_his[-1]:.4e} in {len(r_his)}, single-device "
+            f"{len(ref['single_device'])}, phase 15 {len(ref['residuals'])}; solve wall "
+            f"{max(rec['solve_s']):.3f} s (phase 15 {max(ref['solve_s']):.3f} s), build "
+            f"{max(rec['build_s']):.2f} s a rank")
+        if C == 1 and sm == "jacobi":
+            log(f"{what}: collectives per V-cycle {rec['collectives_per_cycle']} (phase 15 "
+                f"{rec['phase15_collectives_per_cycle']})")
+            for lv, level in enumerate(rec["levels"]):
+                log(f"{what} level {lv}: R {level['R']}, {level['mode']}, lo {level['lo']} "
+                    f"hi {level['hi']}, bytes per exchange by rank "
+                    f"{[bs[lv] for bs in rec['bytes_per_exchange']]}, per V-cycle "
+                    f"{[bs[lv] for bs in rec['bytes_per_cycle']]}")
+        counts = ranks_held(recs, what, (kernel_name(C),))
+        gap = held_history(r_his, ref["single_device"], b_norm, f"{what} (one device)")
+        gap15 = held_history(r_his, ref["residuals"], b_norm, f"{what} (phase 15)")
+        z = recs[0]["z"]
+        res = float(np.linalg.norm(A @ z - rhs))
+        if z.shape != rhs.shape or not np.isfinite(z).all() or not res <= 2 * tol:
+            raise RuntimeError(f"{what}: bad solution (residual {res:.3e}, tol {tol:.3e})")
+        add_counts(launches, counts)
+        rec.update(max_rel_gap=gap, max_rel_gap_phase15=gap15, host_residual=res,
+                   launches_per_rank=counts)
+        log(f"{what}: largest relative gap {gap:.2e} (one device), {gap15:.2e} (phase 15); "
+            f"K1/K2 launches per rank {counts}")
+        if check:
+            for r in recs:
+                for name, e in r["errs"].items():
+                    errs[name] = max(errs.get(name, 0.0), e)
+            rec["kernel_cases"] = sum(r["cases"] for r in recs)
+            log(f"{what}: K1/K2 {rec['kernel_cases']} kernel-vs-plain cases agree on every "
+                f"rank's A, P and PT; max abs err {errs}")
+        out.append(rec)
+    return out, launches, errs
+
+
+def well_path(pool, V, mg, A, M, mcf_meshes, Vb, Fb, mg_b, dev, p15, refs):
+    """Phase 16: the "well" backend and spmd on phase 15's pool (module
+    comment above). Returns (record, K1/K2/K4 launches summed over the
+    ranks, K1/K2 max abs errors)."""
+    t0 = time.perf_counter()
+    shift = {}
+    for D in WELL_RANKS:
+        shift[D] = pool.run(rank_collectives, D, SHIFT_SIZES, 100, ("shift",))[0]
+        log(f"phase 16: gloo on CUDA tensors (segments staged through the host), {D} ranks "
+            "sharing one card, ms per call: "
+            + ", ".join(f"{k} {1e3 * v:.3f} (exchange "
+                        f"{1e3 * p15['collectives_s'][D][k.replace('shift', 'exchange')]:.3f})"
+                        for k, v in shift[D].items()))
+    static, launches, errs = well_static(pool, V, mg, A, M, p15["static"])
+    mcf, l2, e2 = sharded_mcf(pool, mcf_meshes, dev, "well", "phase 16")
+    for label, rec in mcf.items():
+        log(f"phase 16: sharded MCF {label} (well): refresh ms per rank {rec['refresh_ms']} "
+            f"(phase 15, replicated: {p15['mcf'][label]['refresh_ms']}); build s per rank "
+            f"{rec['build_s']} (phase 15 {p15['mcf'][label]['build_s']}); K1 "
+            f"{rec['kernel_cases']} kernel-vs-plain cases agree on every rank's G_l")
+    balloon, l3, e3 = sharded_balloon(pool, Vb, Fb, mg_b, dev, refs, "well", ("f64",),
+                                      (WELL_DIRECTION_GAP, WELL_STEP_GAP), "phase 16")
+    f64, f64_15 = balloon["f64"], p15["balloon"]["f64"]
+    log(f"phase 16: sharded balloon bunny_15K (well, f64): refresh ms per rank "
+        f"{f64['refresh_ms']} (phase 15, replicated: {f64_15['refresh_ms']}); build s per "
+        f"rank {f64['build_s']} (phase 15 {f64_15['build_s']}); K1 {f64['kernel_cases']} "
+        f"kernel-vs-plain cases agree on every rank's G_l")
+    add_counts(launches, (l2, l3))
+    for e in (e2, e3):
+        for name, v in e.items():
+            errs[name] = max(errs.get(name, 0.0), v)
+    wall = time.perf_counter() - t0
+    log(f"phase 16: {wall:.1f} s; launches summed over ranks {launches}; K1/K2 max abs err "
+        f"{errs}")
+    return {"static": static, "mcf": mcf, "balloon": balloon, "wall_s": wall,
+            "shift_s": shift,
+            "note": "D ranks share one card over gloo; the walls say nothing about scaling"}, \
         launches, errs
+
+
+# ------------------------------------------- opt-in runs: --gloo-p2p, --nccl
+def rank_p2p(dev, n):
+    """A rank of the gloo point-to-point probe: rank 0 sends n floats of a
+    tensor on its device to rank 1 (isend / irecv in one batch); rank 1
+    returns whether what arrived in its tensor on the device is what was
+    sent."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    x = torch.arange(n, dtype=torch.float32, device=dev) + 1.0
+    buf = torch.zeros(n, dtype=torch.float32, device=dev)
+    op = (dist.P2POp(dist.isend, x, 1) if rank == 0 else dist.P2POp(dist.irecv, buf, 0))
+    for req in dist.batch_isend_irecv([op]):
+        req.wait()
+    sync()
+    return bool(torch.equal(buf, x)) if rank == 1 else None
+
+
+def gloo_p2p() -> int:
+    """``python3 chip_smoke.py --gloo-p2p``: do gloo's point-to-point
+    operations take CUDA tensors? (``Comm.shift`` stages its segments
+    through host memory under gloo because they are documented for CPU
+    tensors only.) Two gloo ranks on the card in processes of their own;
+    prints what happened: the data arrived, arrived wrong, a rank raised,
+    or the ranks gave no result in 60 s."""
+    from surface_multigrid_code_torch.parallel.comm import spawn_ranks
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device")
+    log(card_line())
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_ranks(rank_p2p, 2, "gloo", "cuda", os.path.join(tmp, "rendezvous"), 4096)
+        try:
+            got = ranks.join(timeout=60)[1]
+            verdict = "arrived intact" if got else "arrived wrong"
+        except RuntimeError as e:  # the probe's answer, not a check
+            verdict = "failed: " + str(e).strip().splitlines()[-1]
+    log(json.dumps({"gloo_p2p_cuda": verdict, "floats": 4096}))
+    return 0
+
+
+def nccl_run() -> int:
+    """``python3 chip_smoke.py --nccl`` on a machine with 4 cards: phase
+    16's static ico7 solve with one rank per card over NCCL
+    (``ranks_static``)."""
+    from surface_multigrid_code_torch import _build
+
+    if torch.cuda.device_count() < 4:
+        raise RuntimeError(f"--nccl needs 4 cards, found {torch.cuda.device_count()}")
+    log(card_line())
+    _build.load_library()
+    V, F, mg, A, M, t_mg = ico_system(7)
+    out = ranks_static(V, mg, A, M, "nccl", torch.device("cuda", 0))
+    log(json.dumps({"nccl": out}))
+    return 0
+
+
+def ranks_static(V, mg, A, M, backend, dev):
+    """The collectives (shift / exchange / allreduce ms on 2 and 4 ranks),
+    then the static solve with HaloHierarchy, WellHaloHierarchy and spmd on
+    2 and 4 ranks (Jacobi) and WellHaloHierarchy (Chebyshev), on a pool of
+    4 ranks over ``backend`` on dev's type of device (``cuda``: one rank a
+    card), each held to the single-device solve on dev by phase 15's bars.
+    Returns the records."""
+    from surface_multigrid_code_torch.config import SmootherType, SolveConfig
+    from surface_multigrid_code_torch.parallel.comm import RankPool
+    from surface_multigrid_code_torch.solver.vcycle import build_device_hierarchy, solve_loop
+
+    As, Ps = ico_chain(mg, A)
+    b = np.asarray(M @ V[:, 0])
+    b_norm = float(np.linalg.norm(b))
+    tol = REL_TOL * b_norm
+    single = {}
+    for sm in ("jacobi", "chebyshev"):
+        cfg = SolveConfig(smoother=SmootherType(sm))
+        hier = build_device_hierarchy(As, Ps, cfg, device=dev, dtype=torch.float32)
+        rt = torch.as_tensor(b, dtype=torch.float32, device=dev)
+        solve_loop(hier, rt, torch.zeros_like(rt), tol, 20, cfg)
+        (_, r, k), wall = timed(lambda: solve_loop(hier, rt, torch.zeros_like(rt), tol, 20, cfg))
+        single[sm] = ([float(x) for x in r[:k].cpu()], wall)
+    out = {"single_device": single, "runs": [], "collectives_s": {}}
+    with RankPool(4, backend, dev.type) as pool:
+        pool.run(rank_ready, 4)
+        for D in WELL_RANKS:
+            c = pool.run(rank_collectives, D, SHIFT_SIZES, 100,
+                         ("exchange", "allreduce_sum", "shift"))[0]
+            out["collectives_s"][D] = c
+            log(f"{backend}: {D} ranks, ms per call: "
+                + ", ".join(f"{k} {1e3 * v:.3f}" for k, v in c.items()))
+        runs = [(kind, "jacobi", D) for kind in ("halo", "well", "spmd") for D in WELL_RANKS]
+        runs += [("well", "chebyshev", D) for D in WELL_RANKS]
+        for kind, sm, D in runs:
+            recs = pool.run(rank_static, D, As, Ps, sm, b, tol, False, kind)
+            what = f"{backend}: ico7 {kind} {sm} on {D} ranks"
+            ranks_held(recs, what, ("spmv_fused",))
+            r_his = recs[0]["residuals"]
+            gap = held_history(r_his, single[sm][0], b_norm, what)
+            res = float(np.linalg.norm(A @ recs[0]["z"] - b))
+            if not res <= 2 * tol:
+                raise RuntimeError(f"{what}: residual {res:.3e}, tol {tol:.3e}")
+            rec = {"backend": kind, "smoother": sm, "ranks": D, "residuals": r_his,
+                   "max_rel_gap": gap, "solve_s": [r["solve_s"] for r in recs],
+                   "build_s": [r["build_s"] for r in recs],
+                   "collectives_per_cycle": recs[0]["collectives_per_cycle"],
+                   "bytes_per_cycle": [[lv["bytes_per_cycle"] for lv in r["levels"]]
+                                       for r in recs]}
+            out["runs"].append(rec)
+            log(f"{what} ({recs[0]['backend']}): {len(r_his)} residuals (single-device "
+                f"{len(single[sm][0])}), largest relative gap {gap:.2e}; solve wall "
+                f"{max(rec['solve_s']):.4f} s (single-device {single[sm][1]:.4f} s); "
+                f"collectives per V-cycle {rec['collectives_per_cycle']}")
+    return out
 
 
 # ---------------------------------------------------------------- main
@@ -2640,14 +3019,18 @@ def main() -> int:
     # phase 15: the sharded paths, on ranks that share the card; each rank
     # sets its counts to 0 just before its path and reads them just after
     with pool:
-        sharded, sh_launches, sh_errs = sharded_path(pool, V, mg, A, M, mcf_meshes, Vb, Fb,
-                                                     mg_block, dev)
-    del mcf_meshes, mg_block
-    for name, n in sh_launches.items():
-        if name in launches:
-            launches[name] += n
-    for name, e in sh_errs.items():
-        errs[name] = max(errs[name], e)
+        sharded, sh_launches, sh_errs, refs = sharded_path(pool, V, mg, A, M, mcf_meshes, Vb,
+                                                           Fb, mg_block, dev)
+        # phase 16: the band-segment backend and spmd, on the same ranks
+        well, w_launches, w_errs = well_path(pool, V, mg, A, M, mcf_meshes, Vb, Fb, mg_block,
+                                             dev, sharded, refs)
+    del mcf_meshes, mg_block, refs
+    for counts, errors in ((sh_launches, sh_errs), (w_launches, w_errs)):
+        for name, n in counts.items():
+            if name in launches:
+                launches[name] += n
+        for name, e in errors.items():
+            errs[name] = max(errs[name], e)
 
     log(card)
     log(json.dumps({"spmv_shapes": shapes, "mesh": f"icosphere({depth})", "dtype": "float32"}))
@@ -2666,13 +3049,15 @@ def main() -> int:
     log(json.dumps({"persistence": persisted, "cli": clis}))
     log(json.dumps({"sharded": sharded, "dtype": "float32 (the balloon direction and step: "
                     "float64 and float32)", "launches": sh_launches}))
+    log(json.dumps({"well": well, "dtype": "float32 (the balloon direction and step: "
+                    "float64)", "launches": w_launches}))
     # ms / plain_ms / library_ms: device time per call (profiler, L2 warm:
     # back-to-back calls on inputs that fit in L2), at ico7 level-0 A (K1,
     # K2), the bunny_15K level-0 block Hessian (K3) and its 31,604 face
     # blocks (K4); call_ms / plain_call_ms: per call between CUDA events over
     # back-to-back calls, host included; bound_ms: from this run's shapes at
     # the H100's HBM and f32 peaks; launches: the counted paths together
-    # (phases 4-5, 10, 7, 12, 13 and 14, and every rank of phase 15). query_walk (K5): ms is the
+    # (phases 4-5, 10, 7, 12, 13 and 14, and every rank of phases 15 and 16). query_walk (K5): ms is the
     # kernel's CUDA-event time at QUERY_CHECK_N f2c queries, plain_ms and
     # plain_call_ms the plain version's wall per call there, call_ms the
     # wall of query_fine_to_coarse_device (transfers included)
@@ -2696,4 +3081,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
         sys.exit(child(sys.argv[2]))
+    if sys.argv[1:2] == ["--gloo-p2p"]:
+        sys.exit(gloo_p2p())
+    if sys.argv[1:2] == ["--nccl"]:
+        sys.exit(nccl_run())
     sys.exit(main())

@@ -21,12 +21,17 @@ NVIDIA H100. Module names mirror the JAX package. It carries these paths:
 - the command line, ``python -m surface_multigrid_code_torch <cmd>``
   (``cli.py``: decimate, hierarchy, solve, mcf, remesh);
 - the multi-device paths (``parallel/``), SPMD over a torch.distributed
-  process group: ``HaloHierarchy`` (each rank's rows of every level, the
-  halo exchanged per SpMV, a column-partitioned restriction into small
-  levels, the replicated coarse solve; ``solve`` and the refreshed
-  ``solve_values``), ``ShardedMCFStepper`` and ``ShardedBalloonNewton``
-  (with ``parallel.balloon.implicit_euler_mg_balloon_sharded``); the
-  ranks start with ``parallel.comm.spawn_ranks`` / ``RankPool`` or any
+  process group: ``WellHaloHierarchy`` (the default backend: levels in
+  the global induced-RCM ordering, each rank's rows, the halo exchanged
+  as two band segments per SpMV, a column-partitioned restriction or a
+  replicated level where the band is wider than a block; ``solve`` and
+  ``solve_values`` with the value refresh sharded by rank),
+  ``HaloHierarchy`` (publish sets gathered per SpMV, the refresh
+  replicated), ``build_sharded_hierarchy`` / ``sharded_solve`` (the
+  GSPMD layout: the whole vector gathered per SpMV), and
+  ``ShardedMCFStepper`` and ``ShardedBalloonNewton`` (``backend="well"``
+  or ``"halo"``; with ``parallel.balloon.implicit_euler_mg_balloon_sharded``);
+  the ranks start with ``parallel.comm.spawn_ranks`` / ``RankPool`` or any
   launcher that initialises the group.
 
 Host precompute (SSP decimation in the port's copy of the C++ engine,
@@ -41,6 +46,8 @@ from surface_multigrid_code_torch.models.mcf import MCFStepper
 from surface_multigrid_code_torch.parallel.balloon import ShardedBalloonNewton
 from surface_multigrid_code_torch.parallel.halo import HaloHierarchy
 from surface_multigrid_code_torch.parallel.mcf import ShardedMCFStepper
+from surface_multigrid_code_torch.parallel.spmd import build_sharded_hierarchy, sharded_solve
+from surface_multigrid_code_torch.parallel.wellhalo import WellHaloHierarchy
 from surface_multigrid_code_torch.query.maps import query_coarse_to_fine, query_fine_to_coarse
 from surface_multigrid_code_torch.solver.hierarchy import (
     load_hierarchy,
@@ -70,6 +77,8 @@ __all__ = [
     "ShardedBalloonNewton",
     "ShardedMCFStepper",
     "SolveConfig",
+    "WellHaloHierarchy",
+    "build_sharded_hierarchy",
     "load_device_hierarchy",
     "load_hierarchy",
     "mg_precompute",
@@ -80,4 +89,5 @@ __all__ = [
     "query_fine_to_coarse",
     "save_device_hierarchy",
     "save_hierarchy",
+    "sharded_solve",
 ]

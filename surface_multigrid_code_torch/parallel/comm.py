@@ -17,11 +17,26 @@ package's ``shard_map`` bodies, ``parallel/halo.py:426-500``):
   restriction's partial products.
 - ``Comm.broadcast(t)``: rank 0's value on every rank, where host code
   takes a decision that must agree across ranks (the balloon's line search).
+- ``Comm.shift(x_local, lo, hi)``: the band-segment halo exchange of
+  ``parallel/wellhalo.py`` (the two ``ppermute`` of the JAX
+  ``wellhalo._exchange_seg``, ``wellhalo.py:132-149``): each rank sends the
+  last ``lo`` rows of its block to the next rank and the first ``hi`` rows
+  to the previous one, in one ``batch_isend_irecv``, and gets
+  ``[lo rows of the previous rank; x_local; hi rows of the next rank]``,
+  zeros where the first or last rank has no neighbour.
+
+``Comm.counts`` counts the calls of each collective (a V-cycle's
+collectives are read from it).
 
 The backend is the caller's choice: ``nccl`` with one rank per card, or
 ``gloo`` on the CPU and for ranks that share one card. gloo takes CUDA
 tensors for ``all_gather``, ``all_reduce`` and ``broadcast`` and stages
-them through host memory itself; nothing here changes route by backend.
+them through host memory itself. Its point-to-point operations do not:
+they are documented for CPU tensors only, and given a CUDA tensor a rank
+aborts (gloo::IoException, "Bad address": ``chip_smoke.py --gloo-p2p``
+on the H100 machine). So under gloo ``shift`` copies the segments it
+sends to host memory and what it receives back to the card; under nccl
+it sends device memory. That route is chosen by the backend.
 
 ``spawn_ranks`` starts D rank processes (``torch.multiprocessing`` with
 ``spawn``: CUDA cannot be initialised in a forked child) that join one
@@ -32,6 +47,7 @@ another on the first d of them, so a caller pays process start-up once.
 
 from __future__ import annotations
 
+import collections
 import datetime
 import os
 import pickle
@@ -65,9 +81,11 @@ class Comm:
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
         self.backend = str(dist.get_backend(group))
+        self.counts = collections.Counter()
 
     def exchange(self, x_local: torch.Tensor, send: torch.Tensor) -> torch.Tensor:
         """``[x_local; all ranks' x_local[send]]`` (rows; any trailing columns)."""
+        self.counts["exchange"] += 1
         pub = x_local.index_select(0, send)
         parts = [torch.empty_like(pub) for _ in range(self.size)]
         dist.all_gather(parts, pub, group=self.group)
@@ -75,20 +93,59 @@ class Comm:
 
     def gather_rows(self, x_local: torch.Tensor) -> torch.Tensor:
         """Every rank's ``x_local`` (each of the same shape), in rank order."""
+        self.counts["gather_rows"] += 1
         parts = [torch.empty_like(x_local) for _ in range(self.size)]
         dist.all_gather(parts, x_local.contiguous(), group=self.group)
         return torch.cat(parts)
 
     def allreduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of ``t`` over the ranks, in place; returns ``t``."""
+        self.counts["allreduce_sum"] += 1
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         return t
 
     def broadcast(self, t: torch.Tensor) -> torch.Tensor:
         """Rank 0's ``t`` on every rank, in place; returns ``t``."""
+        self.counts["broadcast"] += 1
         dist.broadcast(t, src=dist.get_global_rank(self.group, 0) if self.group else 0,
                        group=self.group)
         return t
+
+    def shift(self, x_local: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+        """``[lo rows from rank - 1; x_local; hi rows from rank + 1]``: this
+        rank sends its last ``lo`` rows to rank + 1 and its first ``hi`` rows
+        to rank - 1 (rows; any trailing columns). The first rank gets zeros
+        for the rows below, the last for those above. Every rank passes the
+        same lo and hi, each at most its own row count."""
+        self.counts["shift"] += 1
+        r, D, n = self.rank, self.size, x_local.shape[0]
+        stage = self.backend == "gloo" and x_local.device.type != "cpu"
+        buf = torch.device("cpu") if stage else x_local.device
+        below = torch.zeros((lo, *x_local.shape[1:]), dtype=x_local.dtype, device=buf)
+        above = torch.zeros((hi, *x_local.shape[1:]), dtype=x_local.dtype, device=buf)
+
+        def peer(q):
+            return q if self.group is None else dist.get_global_rank(self.group, q)
+
+        def seg(a, b):
+            t = x_local[a:b].contiguous()
+            return t.cpu() if stage else t
+
+        ops = []
+        if lo and r + 1 < D:
+            ops.append(dist.P2POp(dist.isend, seg(n - lo, n), peer(r + 1), self.group))
+        if lo and r > 0:
+            ops.append(dist.P2POp(dist.irecv, below, peer(r - 1), self.group))
+        if hi and r > 0:
+            ops.append(dist.P2POp(dist.isend, seg(0, hi), peer(r - 1), self.group))
+        if hi and r + 1 < D:
+            ops.append(dist.P2POp(dist.irecv, above, peer(r + 1), self.group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        if stage:
+            below, above = below.to(x_local.device), above.to(x_local.device)
+        return torch.cat([below, x_local, above])
 
 
 def rank_device(device="cuda") -> torch.device:

@@ -202,7 +202,127 @@ class HaloLevel(nn.Module):
         self.lam_max = lam_max
 
 
-class HaloHierarchy:
+class RowPartitioned:
+    """The V-cycle, solve loop and host API of a row-partitioned hierarchy.
+
+    Every level's rows are cut into D equal blocks of R rows, one per rank
+    (the last padded past n). A subclass builds, per rank, ``levels``
+    (each with ``R``, ``A``, ``dinv``, ``lam_max``, and above the coarsest
+    ``P``, ``PT`` and ``pt_cols``), ``_As`` (the host levels in the
+    partition's order), ``perm0``, ``n0``, ``comm``, ``device``, ``dtype``,
+    ``cfg``, ``sent_bytes`` and ``_coarse_inv = None``, and defines
+    ``_exchange(lv, x)``: the vector this rank's operators read from its
+    rows ``x`` of level lv. A refreshable one also defines ``refresh``.
+    """
+
+    @property
+    def coarse_inv(self) -> torch.Tensor:
+        """This rank's rows of the dense pseudo-inverse of the coarsest
+        level (identity rows on its pad), built on first use: the refreshed
+        solves build their own."""
+        if self._coarse_inv is None:
+            RL = self.levels[-1].R
+            A = self._As[-1]
+            Ac = sp.csr_matrix(A, copy=True)
+            Ac.resize((RL * self.D, RL * self.D))
+            Ac = Ac + sp.diags(np.r_[np.zeros(A.shape[0]), np.ones(RL * self.D - A.shape[0])])
+            Cinv = coarse_pseudo_inverse(Ac)[self.rank * RL:(self.rank + 1) * RL]
+            self._coarse_inv = torch.as_tensor(Cinv).to(self.device, self.dtype)
+        return self._coarse_inv
+
+    # ------------------------------------------------------------- V-cycle
+    def _smooth(self, lv: int, lvl, b, u, n_iter: int):
+        x_of = (lambda v: self._exchange(lv, v))
+        if self.cfg.smoother == SmootherType.CHEBYSHEV:
+            return chebyshev_smooth(lvl.A, lvl.dinv, lvl.lam_max, b, u, degree=n_iter,
+                                    x_of=x_of)
+        for _ in range(n_iter):
+            u = jacobi_sweep(lvl.A, lvl.dinv, b, u, weight=self.cfg.jacobi_weight, x_of=x_of)
+        return u
+
+    def _cycle(self, lv: int, b, u, levels, coarse_rows):
+        lvl = levels[lv]
+        if lv == len(levels) - 1:
+            b_all = self.comm.gather_rows(b)
+            self.sent_bytes[lv] += b.numel() * b.element_size()
+            return u + coarse_rows @ b_all
+        cfg = self.cfg
+        u = self._smooth(lv, lvl, b, u, cfg.pre_relax_iter)
+        r = fused_spmv(lvl.A, self._exchange(lv, u), epi="resid", b=b)
+        Rc = levels[lv + 1].R
+        if lvl.pt_cols:
+            part = self.comm.allreduce_sum(fused_spmv(lvl.PT, r))
+            self.sent_bytes[lv + 1] += part.numel() * part.element_size()
+            rc = part[self.rank * Rc:(self.rank + 1) * Rc].contiguous()
+        else:
+            rc = fused_spmv(lvl.PT, self._exchange(lv, r))
+        uc = self._cycle(lv + 1, rc, torch.zeros_like(rc), levels, coarse_rows)
+        u = fused_spmv(lvl.P, self._exchange(lv + 1, uc), epi="add", u=u)
+        return self._smooth(lv, lvl, b, u, cfg.post_relax_iter)
+
+    def vcycle(self, b: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """One V-cycle on this rank's rows of the finest level (b, u: [R0]
+        or [R0, C]); every rank calls it together. Returns a new tensor."""
+        return self._cycle(0, b, u, self.levels, self.coarse_inv)
+
+    def _loop(self, rhs, z, tol: float, max_iter: int, levels, coarse_rows):
+        """The solve loop of ``solver/vcycle.solve_loop`` on the local rows:
+        record the global residual norm (an allreduce, so every rank takes
+        the same decision), stop before cycling once it is below tol."""
+        A0 = levels[0].A
+        tol_t = torch.tensor(tol, dtype=rhs.dtype, device=rhs.device)
+        r_his = []
+        for _ in range(max_iter):
+            r = fused_spmv(A0, self._exchange(0, z), epi="resid", b=rhs)
+            res = torch.sqrt(self.comm.allreduce_sum((r * r).sum().reshape(1)))[0]
+            r_his.append(res)
+            if bool(res < tol_t):
+                break
+            z = self._cycle(0, rhs, z, levels, coarse_rows)
+        return z, torch.stack(r_his)
+
+    # ------------------------------------------------------------ host API
+    def local_rows(self, v) -> torch.Tensor:
+        """This rank's rows of a full vector ([n0] or [n0, C], numpy) in the
+        partition's order, zero on the pad."""
+        v = np.asarray(v, dtype=np.float64)
+        R0 = self.levels[0].R
+        out = np.zeros((R0 * self.D,) + v.shape[1:])
+        out[:self.n0] = v[self.perm0]
+        blk = out[self.rank * R0:(self.rank + 1) * R0]
+        return torch.as_tensor(blk).to(device=self.device, dtype=self.dtype)
+
+    def _finish(self, z, r_his, tolerance):
+        z_all = self.comm.gather_rows(z).cpu().to(torch.float64).numpy()
+        z_out = np.empty((self.n0,) + z_all.shape[1:])
+        z_out[self.perm0] = z_all[:self.n0]
+        r_list = [float(r) for r in r_his.cpu()]
+        return z_out, r_list, bool(r_list and r_list[-1] <= tolerance)
+
+    def solve(self, rhs, z0=None, tolerance: float = 1e-3, max_iter: int = 20):
+        """Solve A0 z = rhs (rhs [n0] or [n0, C], numpy, the same on every
+        rank); returns (z f64 numpy, the residual list, converged) on every
+        rank, as the JAX ``HaloHierarchy.solve``."""
+        rhs_l = self.local_rows(rhs)
+        z_l = torch.zeros_like(rhs_l) if z0 is None else self.local_rows(z0)
+        z, r_his = self._loop(rhs_l, z_l, float(tolerance), int(max_iter), self.levels,
+                              self.coarse_inv)
+        return self._finish(z, r_his, tolerance)
+
+    def solve_values(self, A0_vals, rhs, z0=None, tolerance: float = 1e-3,
+                     max_iter: int = 20):
+        """Refresh every level from finest nnz values (original canonical CSR
+        order of the A0 the hierarchy was built from; numpy or a tensor),
+        then solve as ``solve``. Requires ``enable_refresh()``."""
+        levels, coarse_rows = self.refresh(A0_vals)
+        rhs_l = self.local_rows(rhs)
+        z_l = torch.zeros_like(rhs_l) if z0 is None else self.local_rows(z0)
+        z, r_his = self._loop(rhs_l, z_l, float(tolerance), int(max_iter), levels,
+                              coarse_rows)
+        return self._finish(z, r_his, tolerance)
+
+
+class HaloHierarchy(RowPartitioned):
     """One rank's share of a row-partitioned multigrid hierarchy.
 
     As, Ps: the hierarchy (scipy), the same on every rank; Ps[l] maps level
@@ -348,104 +468,10 @@ class HaloHierarchy:
         h.perm0, h._A0_orig = perms[0], A0
         return h._enable_refresh(plan)
 
-    @property
-    def coarse_inv(self) -> torch.Tensor:
-        """This rank's rows of the dense pseudo-inverse of the coarsest
-        level (identity rows on its pad), built on first use: the refreshed
-        solves build their own."""
-        if self._coarse_inv is None:
-            RL = self.levels[-1].R
-            A = self._As[-1]
-            Ac = sp.csr_matrix(A, copy=True)
-            Ac.resize((RL * self.D, RL * self.D))
-            Ac = Ac + sp.diags(np.r_[np.zeros(A.shape[0]), np.ones(RL * self.D - A.shape[0])])
-            Cinv = coarse_pseudo_inverse(Ac)[self.rank * RL:(self.rank + 1) * RL]
-            self._coarse_inv = torch.as_tensor(Cinv).to(self.device, self.dtype)
-        return self._coarse_inv
-
-    # ------------------------------------------------------------- V-cycle
     def _exchange(self, lv: int, x: torch.Tensor) -> torch.Tensor:
         lvl = self.levels[lv]
         self.sent_bytes[lv] += lvl.send.shape[0] * (x.numel() // x.shape[0]) * x.element_size()
         return self.comm.exchange(x, lvl.send)
-
-    def _smooth(self, lv: int, lvl: HaloLevel, b, u, n_iter: int):
-        x_of = (lambda v: self._exchange(lv, v))
-        if self.cfg.smoother == SmootherType.CHEBYSHEV:
-            return chebyshev_smooth(lvl.A, lvl.dinv, lvl.lam_max, b, u, degree=n_iter,
-                                    x_of=x_of)
-        for _ in range(n_iter):
-            u = jacobi_sweep(lvl.A, lvl.dinv, b, u, weight=self.cfg.jacobi_weight, x_of=x_of)
-        return u
-
-    def _cycle(self, lv: int, b, u, levels, coarse_rows):
-        lvl = levels[lv]
-        if lv == len(levels) - 1:
-            b_all = self.comm.gather_rows(b)
-            self.sent_bytes[lv] += b.numel() * b.element_size()
-            return u + coarse_rows @ b_all
-        cfg = self.cfg
-        u = self._smooth(lv, lvl, b, u, cfg.pre_relax_iter)
-        r = fused_spmv(lvl.A, self._exchange(lv, u), epi="resid", b=b)
-        Rc = levels[lv + 1].R
-        if lvl.pt_cols:
-            part = self.comm.allreduce_sum(fused_spmv(lvl.PT, r))
-            self.sent_bytes[lv + 1] += part.numel() * part.element_size()
-            rc = part[self.rank * Rc:(self.rank + 1) * Rc].contiguous()
-        else:
-            rc = fused_spmv(lvl.PT, self._exchange(lv, r))
-        uc = self._cycle(lv + 1, rc, torch.zeros_like(rc), levels, coarse_rows)
-        u = fused_spmv(lvl.P, self._exchange(lv + 1, uc), epi="add", u=u)
-        return self._smooth(lv, lvl, b, u, cfg.post_relax_iter)
-
-    def vcycle(self, b: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-        """One V-cycle on this rank's rows of the finest level (b, u: [R0]
-        or [R0, C]); every rank calls it together. Returns a new tensor."""
-        return self._cycle(0, b, u, self.levels, self.coarse_inv)
-
-    def _loop(self, rhs, z, tol: float, max_iter: int, levels, coarse_rows):
-        """The solve loop of ``solver/vcycle.solve_loop`` on the local rows:
-        record the global residual norm (an allreduce, so every rank takes
-        the same decision), stop before cycling once it is below tol."""
-        A0 = levels[0].A
-        tol_t = torch.tensor(tol, dtype=rhs.dtype, device=rhs.device)
-        r_his = []
-        for _ in range(max_iter):
-            r = fused_spmv(A0, self._exchange(0, z), epi="resid", b=rhs)
-            res = torch.sqrt(self.comm.allreduce_sum((r * r).sum().reshape(1)))[0]
-            r_his.append(res)
-            if bool(res < tol_t):
-                break
-            z = self._cycle(0, rhs, z, levels, coarse_rows)
-        return z, torch.stack(r_his)
-
-    # ------------------------------------------------------------ host API
-    def local_rows(self, v) -> torch.Tensor:
-        """This rank's rows of a full vector ([n0] or [n0, C], numpy) in the
-        partition's order, zero on the pad."""
-        v = np.asarray(v, dtype=np.float64)
-        R0 = self.levels[0].R
-        out = np.zeros((R0 * self.D,) + v.shape[1:])
-        out[:self.n0] = v[self.perm0]
-        blk = out[self.rank * R0:(self.rank + 1) * R0]
-        return torch.as_tensor(blk).to(device=self.device, dtype=self.dtype)
-
-    def _finish(self, z, r_his, tolerance):
-        z_all = self.comm.gather_rows(z).cpu().to(torch.float64).numpy()
-        z_out = np.empty((self.n0,) + z_all.shape[1:])
-        z_out[self.perm0] = z_all[:self.n0]
-        r_list = [float(r) for r in r_his.cpu()]
-        return z_out, r_list, bool(r_list and r_list[-1] <= tolerance)
-
-    def solve(self, rhs, z0=None, tolerance: float = 1e-3, max_iter: int = 20):
-        """Solve A0 z = rhs (rhs [n0] or [n0, C], numpy, the same on every
-        rank); returns (z f64 numpy, the residual list, converged) on every
-        rank, as the JAX ``HaloHierarchy.solve``."""
-        rhs_l = self.local_rows(rhs)
-        z_l = torch.zeros_like(rhs_l) if z0 is None else self.local_rows(z0)
-        z, r_his = self._loop(rhs_l, z_l, float(tolerance), int(max_iter), self.levels,
-                              self.coarse_inv)
-        return self._finish(z, r_his, tolerance)
 
     # -------------------------------------------------------------- refresh
     def enable_refresh(self):
@@ -469,16 +495,10 @@ class HaloHierarchy:
                     f"{A_lv.nnz} nnz): build the hierarchy's As with "
                     "solver.galerkin.galerkin_chain so the stored chain keeps the full "
                     "symbolic PtAP pattern")
-        A0o = self._A0_orig
-        invp = np.empty(self.n0, dtype=np.int64)
-        invp[self.perm0] = np.arange(self.n0)
-        orows = np.repeat(np.arange(self.n0, dtype=np.int64), np.diff(A0o.indptr))
-        slot_of_orig = csr_slot_map(A0p, invp[orows], invp[A0o.indices])
-        perm_nnz = np.empty_like(slot_of_orig)
-        perm_nnz[slot_of_orig] = np.arange(slot_of_orig.shape[0])
         self._refresh = {
             "plans": device_plan(plan, A0p, self.device, self.dtype),
-            "perm_nnz": torch.as_tensor(perm_nnz, device=self.device),
+            "perm_nnz": torch.as_tensor(nnz_order(self._A0_orig, A0p, self.perm0),
+                                        device=self.device),
         }
         return self
 
@@ -527,17 +547,19 @@ class HaloHierarchy:
         cinv = torch.cholesky_solve(eye, torch.linalg.cholesky(dense))
         return out, cinv[self.rank * RL:(self.rank + 1) * RL].contiguous()
 
-    def solve_values(self, A0_vals, rhs, z0=None, tolerance: float = 1e-3,
-                     max_iter: int = 20):
-        """Refresh every level from finest nnz values (original canonical CSR
-        order of the A0 the hierarchy was built from; numpy or a tensor),
-        then solve as ``solve``. Requires ``enable_refresh()``."""
-        levels, coarse_rows = self.refresh(A0_vals)
-        rhs_l = self.local_rows(rhs)
-        z_l = torch.zeros_like(rhs_l) if z0 is None else self.local_rows(z0)
-        z, r_his = self._loop(rhs_l, z_l, float(tolerance), int(max_iter), levels,
-                              coarse_rows)
-        return self._finish(z, r_his, tolerance)
+
+def nnz_order(A0: sp.csr_matrix, A0p: sp.csr_matrix, perm0: np.ndarray) -> np.ndarray:
+    """For each nonzero of A0p (A0 with rows and columns in the order
+    perm0, canonical CSR), the id of that entry in A0's canonical CSR
+    order: A0p.data == A0.data[nnz_order(A0, A0p, perm0)]."""
+    n = A0.shape[0]
+    invp = np.empty(n, dtype=np.int64)
+    invp[perm0] = np.arange(n)
+    orows = np.repeat(np.arange(n, dtype=np.int64), np.diff(A0.indptr))
+    slot_of_orig = csr_slot_map(A0p, invp[orows], invp[A0.indices])
+    out = np.empty_like(slot_of_orig)
+    out[slot_of_orig] = np.arange(slot_of_orig.shape[0])
+    return out
 
 
 def _diag_slots(A: sp.csr_matrix, rows: np.ndarray) -> np.ndarray:

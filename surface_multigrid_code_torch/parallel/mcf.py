@@ -2,12 +2,14 @@
 
 The reference step (05_example_mean_curvature_flow/main.cpp:53-80): solve
 (M - delta L) U = M U_pre with L fixed, then renormalize the area. Here
-every rank holds its rows of the hierarchy (``parallel/halo.py``); per
-step the host assembles the finest values (the barycentric mass added on
-the fixed cotan values' diagonal slots) and ``HaloHierarchy.solve_values``
-refreshes every level and runs the V-cycles on the [n, 3] right-hand side
-(K2 for every SpMV). Every rank runs the step together and returns the
-same result.
+every rank holds its rows of the hierarchy: ``backend="well"`` (the
+default, as in the JAX package) ``parallel/wellhalo.py``, band-segment
+halos and the sharded value refresh; ``"halo"`` ``parallel/halo.py``.
+Per step the host assembles the finest values (the barycentric mass added
+on the fixed cotan values' diagonal slots) and ``solve_values`` refreshes
+every level and runs the V-cycles on the [n, 3] right-hand side (K2 for
+every SpMV). Every rank runs the step together and returns the same
+result.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 
 from surface_multigrid_code_torch.config import SmootherType, SolveConfig
 from surface_multigrid_code_torch.ops.laplacian import cotmatrix
-from surface_multigrid_code_torch.parallel.halo import HaloHierarchy
+from surface_multigrid_code_torch.parallel.wellhalo import galerkin_hierarchy
 from surface_multigrid_code_torch.solver.refresh import csr_slot_map
 
 
@@ -35,7 +37,9 @@ class ShardedMCFStepper:
     group. Parameters as ``models/mcf.MCFStepper``'s (Jacobi by default,
     as the JAX class); ``mg`` is the SSP hierarchy of ``mg_precompute``,
     ``group`` the process group (None: the default), ``device`` this
-    rank's device (``comm.rank_device``)."""
+    rank's device (``comm.rank_device``). ``backend``: ``"well"`` or
+    ``"halo"``; ``reorder=False`` (the levels in the order given) only
+    with ``"halo"`` (``wellhalo.galerkin_hierarchy``)."""
 
     def __init__(
         self,
@@ -49,6 +53,8 @@ class ShardedMCFStepper:
         dtype: torch.dtype = torch.float32,
         device="cuda",
         group=None,
+        reorder: bool = True,
+        backend: str = "well",
     ):
         self.F = np.asarray(F, dtype=np.int64)
         self.delta = float(delta)
@@ -68,8 +74,7 @@ class ShardedMCFStepper:
         Ps = [mg[lv].P_full.tocsr() for lv in range(1, len(mg))]
         # the symbolic chain: SSP prolongations carry exact-zero weights
         # whose products scipy's numeric PᵀAP would drop
-        self.halo = HaloHierarchy.galerkin(A0, Ps, cfg=cfg, dtype=dtype, device=device,
-                                           group=group)
+        self.halo = galerkin_hierarchy(A0, Ps, cfg, dtype, device, group, backend, reorder)
 
     def step(self, U: np.ndarray):
         """One flow step; returns (U_next, the residual list, converged)."""

@@ -169,6 +169,7 @@ def test_port_imports_no_jax():
         "assert len(names) >= 20, names\n"
         "for need in ('cli', 'query.device', 'solver.serialize', 'utils.upsample',\n"
         "             'solver.ordering', 'parallel.comm', 'parallel.halo', 'parallel.mcf',\n"
+        "             'parallel.wellhalo', 'parallel.spmd',\n"
         "             'parallel.balloon'):\n"
         "    assert pkg.__name__ + '.' + need in names, need\n"
         "print(len(names))\n"

@@ -1,4 +1,4 @@
-"""Rank-side tasks of ``tests/test_torch_parallel.py``.
+"""Rank-side tasks of ``tests/test_torch_parallel.py`` and ``tests/test_torch_wellhalo*.py``.
 
 Each runs on the ranks of a ``parallel.comm.RankPool`` as
 ``fn(group, device, *args)``; the ranks import this module (not the test
@@ -80,15 +80,16 @@ def restrict(group, dev, As, Ps, rows, seed):
     return out
 
 
-def mcf_step(group, dev, V, F, mg):
+def mcf_step(group, dev, V, F, mg, backend="halo"):
     from surface_multigrid_code_torch.parallel.mcf import ShardedMCFStepper
 
     st = ShardedMCFStepper(V, F, mg, cfg=SolveConfig(smoother=SmootherType.JACOBI),
-                           dtype=torch.float64, device=dev, group=group)
+                           dtype=torch.float64, device=dev, group=group, backend=backend)
     return st.step(V.copy())
 
 
-def balloon(group, dev, V, F, young, poisson, mg, dt, pressure, g_tol, n_newton, step_tol):
+def balloon(group, dev, V, F, young, poisson, mg, dt, pressure, g_tol, n_newton, step_tol,
+            backend="halo"):
     """The Newton direction of H dx = g at rest (g of the inflated rest
     state), then one sharded implicit-Euler step from rest."""
     from surface_multigrid_code_torch.models.balloon import inflation_force, lumped_mass_matrix
@@ -102,7 +103,7 @@ def balloon(group, dev, V, F, young, poisson, mg, dt, pressure, g_tol, n_newton,
     shell = ShellEnergy(V, F, 0.1, alpha, beta, "neohookean", device=dev)
     M = 1000.0 * lumped_mass_matrix(V, F)
     fExt = inflation_force(V, F, pressure)
-    ns = ShardedBalloonNewton(shell, M, mg, dt, group=group)
+    ns = ShardedBalloonNewton(shell, M, mg, dt, group=group, backend=backend)
     g = -(dt * shell.gradient(V.reshape(-1)) + dt * fExt)
     vals = ns.hessian_values(V.reshape(-1), dt)
     dx, r_his, ok = ns.solve(vals, g, tolerance=g_tol, max_iter=20)
@@ -119,10 +120,108 @@ def default_device(group, dev, As, Ps, V, F, mg):
 
     out = []
     for build in (lambda: halo.HaloHierarchy(As, Ps, group=group),
+                  lambda: ShardedMCFStepper(V, F, mg, group=group, backend="halo")):
+        try:
+            build()
+            out.append(None)
+        except RuntimeError as e:
+            out.append(str(e))
+    return out
+
+
+# ------------------------------------------------ tests/test_torch_wellhalo*.py
+def _well(group, dev, As, Ps, smoother):
+    from surface_multigrid_code_torch.parallel.wellhalo import WellHaloHierarchy
+
+    return WellHaloHierarchy(As, Ps, SolveConfig(smoother=SmootherType(smoother)),
+                             torch.float64, dev, group)
+
+
+def well_plan(group, dev, As, Ps):
+    """The plan: ordering, R, extents and mode of every level."""
+    h = _well(group, dev, As, Ps, "jacobi")
+    return {"perm0": h.perm0, "Rs": h.Rs, "extents": h.extents, "pt_extents": h.pt_extents,
+            "modes": [(lv.lo, lv.hi, lv.rep, lv.pt_cols) for lv in h.levels]}
+
+
+def well_solve(group, dev, As, Ps, smoother, rhs, tol, max_iter):
+    return _well(group, dev, As, Ps, smoother).solve(rhs, tolerance=tol, max_iter=max_iter)
+
+
+def well_solve_values(group, dev, As, Ps, smoother, value_sets, rhs, tol, max_iter):
+    """solve_values for each value set, and this rank's refreshed values of
+    every level against its slice of the replicated refresh_values."""
+    from surface_multigrid_code_torch.solver.galerkin import (
+        build_galerkin_plan,
+        device_plan,
+        refresh_values,
+    )
+
+    h = _well(group, dev, As, Ps, smoother).enable_refresh()
+    plans = device_plan(build_galerkin_plan(h._As[0], h._Ps), h._As[0], dev, torch.float64)
+    perm = halo.nnz_order(h._A0_orig, h._As[0], h.perm0)
+    out = []
+    for vals in value_sets:
+        mine = h.level_values(vals)
+        ref = refresh_values(plans, torch.as_tensor(np.asarray(vals)[perm]))
+        gaps = []
+        for lv, (v, (r, _)) in enumerate(zip(mine, ref)):
+            b = h._refresh["bounds"][lv]
+            want = r[b[h.rank]:b[h.rank + 1]]
+            gaps.append(float((v - want).abs().max() / r.abs().max()) if v.numel() else 0.0)
+        out.append((h.solve_values(vals, rhs, tolerance=tol, max_iter=max_iter), gaps,
+                    [v.shape[0] for v in mine]))
+    return out
+
+
+def spmd_solve(group, dev, As, Ps, rhs, tol, max_iter):
+    from surface_multigrid_code_torch.parallel.spmd import build_sharded_hierarchy, sharded_solve
+
+    hier, sizes = build_sharded_hierarchy(As, Ps, dtype=torch.float64, device=dev, group=group)
+    return sharded_solve(hier, sizes, rhs, tolerance=tol, max_iter=max_iter), sizes
+
+
+def shift(group, dev, n_rows, lo, hi, C):
+    """Comm.shift of this rank's block of a known vector, and the slice of
+    the whole vector it must equal (zeros outside it)."""
+    from surface_multigrid_code_torch.parallel.comm import Comm
+
+    comm = Comm(group)
+    whole = np.arange(comm.size * n_rows * C, dtype=np.float64).reshape(-1, C) + 1.0
+    r0 = comm.rank * n_rows
+    got = comm.shift(torch.as_tensor(whole[r0:r0 + n_rows]).to(dev), lo, hi)
+    padded = np.concatenate([np.zeros((lo, C)), whole, np.zeros((hi, C))])
+    return got.cpu().numpy(), padded[r0:r0 + lo + n_rows + hi], dict(comm.counts)
+
+
+def well_default_device(group, dev, As, Ps, V, F, mg):
+    """What WellHaloHierarchy, build_sharded_hierarchy and the "well"
+    MCF stepper raise when no device is given on a machine without a card."""
+    from surface_multigrid_code_torch.parallel.mcf import ShardedMCFStepper
+    from surface_multigrid_code_torch.parallel.spmd import build_sharded_hierarchy
+    from surface_multigrid_code_torch.parallel.wellhalo import WellHaloHierarchy
+
+    out = []
+    for build in (lambda: WellHaloHierarchy(As, Ps, group=group),
+                  lambda: build_sharded_hierarchy(As, Ps, group=group),
                   lambda: ShardedMCFStepper(V, F, mg, group=group)):
         try:
             build()
             out.append(None)
         except RuntimeError as e:
             out.append(str(e))
+    return out
+
+
+def mcf_backends(group, dev, V, F, mg):
+    """One MCF step (Jacobi, f64) with backend "well", "halo" and "halo"
+    without reordering."""
+    from surface_multigrid_code_torch.parallel.mcf import ShardedMCFStepper
+
+    out = []
+    for backend, reorder in (("well", True), ("halo", True), ("halo", False)):
+        st = ShardedMCFStepper(V, F, mg, mg_tol=1e-10, cfg=SolveConfig(smoother=SmootherType.JACOBI),
+                               dtype=torch.float64, device=dev, group=group, reorder=reorder,
+                               backend=backend)
+        out.append(st.step(V.copy()))
     return out
