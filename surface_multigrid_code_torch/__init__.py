@@ -11,7 +11,9 @@ NVIDIA H100. Module names mirror the JAX package. It carries these paths:
   (``RefreshableMGSolver``) and V-cycles on [n, 3];
 - the balloon shell simulation (``models.balloon.run_balloon``): the BSR
   multigrid (``solver="bsr"``), or the scalar cross-check on the
-  refreshed solver (``solver="scalar"``);
+  refreshed solver (``solver="scalar"``); ``models.balloon.
+  DeviceBalloonStepper`` runs the scalar system with the whole Newton
+  loop on the device;
 - point queries between the levels of an SSP decimation: the host OpenMP
   walk (``query_fine_to_coarse``, ``query_coarse_to_fine``) and the walk on
   the card (``query.device``, kernel K5);
@@ -37,11 +39,21 @@ NVIDIA H100. Module names mirror the JAX package. It carries these paths:
 Host precompute (SSP decimation in the port's copy of the C++ engine,
 ``native/``, Laplacians, Galerkin plans, colorings) is numpy/scipy; every
 SpMV of a V-cycle is one launch of a hand-written CUDA kernel (``csrc/``).
-The package imports torch, numpy and scipy, and never jax or the JAX
-package.
+The host utilities of the JAX package are carried as jax-free copies:
+``ops.lscm``, ``ssp.quadrics``, ``utils.param``, ``utils.barycentric``,
+``utils.mesh``, ``solver.host_reference`` (the sequential-GS oracle);
+``utils.profiler`` is the region profiler (``trace=True`` opens a
+``torch.profiler`` span), and importing the package pools host
+allocations (``utils.hostmem``; ``SMC_TPU_NO_MALLOC_POOL=1`` opts out, as
+in the JAX package). The package imports torch, numpy and scipy, and
+never jax or the JAX package.
 """
 
-from surface_multigrid_code_torch.config import MGConfig, SolveConfig
+from surface_multigrid_code_torch.utils.hostmem import pool_host_allocations
+
+pool_host_allocations()
+
+from surface_multigrid_code_torch.config import DecimationType, MGConfig, SolveConfig
 from surface_multigrid_code_torch.models.mcf import MCFStepper
 from surface_multigrid_code_torch.parallel.balloon import ShardedBalloonNewton
 from surface_multigrid_code_torch.parallel.halo import HaloHierarchy
@@ -50,6 +62,9 @@ from surface_multigrid_code_torch.parallel.spmd import build_sharded_hierarchy, 
 from surface_multigrid_code_torch.parallel.wellhalo import WellHaloHierarchy
 from surface_multigrid_code_torch.query.maps import query_coarse_to_fine, query_fine_to_coarse
 from surface_multigrid_code_torch.solver.hierarchy import (
+    extend_hierarchy,
+    get_prolong,
+    get_prolong_block,
     load_hierarchy,
     mg_precompute,
     mg_precompute_block,
@@ -69,6 +84,7 @@ from surface_multigrid_code_torch.ssp.decimate import SSP_decimate
 __version__ = "0.1.0"
 
 __all__ = [
+    "DecimationType",
     "HaloHierarchy",
     "MCFStepper",
     "MGConfig",
@@ -79,6 +95,9 @@ __all__ = [
     "SolveConfig",
     "WellHaloHierarchy",
     "build_sharded_hierarchy",
+    "extend_hierarchy",
+    "get_prolong",
+    "get_prolong_block",
     "load_device_hierarchy",
     "load_hierarchy",
     "mg_precompute",

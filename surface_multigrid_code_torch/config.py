@@ -9,12 +9,16 @@ with the reference defaults:
   (reference src/min_quad_with_fixed_mg.cpp:63,77,324-325)
 - coarsest diagonal shift 1e-12 (reference src/min_quad_with_fixed_mg.cpp:35,240)
 - P column-prune threshold 1e-15 (reference src/min_quad_with_fixed_mg.cpp:197)
+- joint-LSCM validity gates: triangle quality 0.3 (3D) / 0.01 (UV), flip
+  epsilon 1e-10, fold-over slack 1e-10
+  (reference src/joint_lscm.cpp:94,420,284,359)
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import math
 
 
 class DecimationType(enum.IntEnum):
@@ -73,3 +77,17 @@ class SolveConfig:
     # Chebyshev lam_max power-iteration count of the refreshed solvers
     # (RefreshableMGSolver, BsrRefreshableSolver).
     lam_power_iters: int = 12
+
+
+@dataclasses.dataclass(frozen=True)
+class LSCMConfig:
+    """Joint-LSCM validity gates (reference src/joint_lscm.cpp)."""
+
+    tri_quality_3d_min: float = 0.3      # :94   boundary-case 3D gate
+    tri_quality_uv_min: float = 0.01     # :420  UV quality gate
+    flip_eps: float = 1e-10              # :284  signed-area flip epsilon
+    foldover_slack: float = 1e-10        # :359  angle-sum > 2*pi + slack
+    two_pi: float = 2.0 * math.pi
+
+
+DEFAULT_LSCM = LSCMConfig()

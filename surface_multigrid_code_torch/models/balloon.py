@@ -21,8 +21,10 @@ multigrid of ``solver/bsr.py`` (kernels K2, K3; the projection runs K4).
 own data layout: ``implicit_euler_mg_balloon`` solves the 3-expanded
 scalar system on the block hierarchy (``mg_precompute_block``) with
 ``BalloonNewtonSolver`` (``RefreshableMGSolver``, multicolor GS; K1 for
-every SpMV, K4 in the projection). ``implicit_euler_balloon_direct`` is
-the host sparse-LU oracle.
+every SpMV, K4 in the projection). ``DeviceBalloonStepper`` runs the
+same scalar system with the whole Newton loop on the device (the loop
+``BsrBalloonStepper`` shares, ``_NewtonStepper``; K1 and K4).
+``implicit_euler_balloon_direct`` is the host sparse-LU oracle.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from surface_multigrid_code_torch.solver.hierarchy import (
     mg_precompute_block,
 )
 from surface_multigrid_code_torch.solver.refresh import RefreshableMGSolver, csr_slot_map
+from surface_multigrid_code_torch.solver.vcycle import solve_loop
 from surface_multigrid_code_torch.utils.device import resolve_device
 
 PHASES = ("assembly", "psd", "refresh", "vcycles", "line_search")
@@ -122,15 +125,188 @@ class GatherAssembly:
         return vals.index_add_(0, self.diag_slots, diag)
 
 
-class BsrBalloonStepper:
+# backtracking line search of every Newton loop here (reference
+# implicit_euler_mg_balloon.h:80-114): sufficient decrease c, shrink p,
+# and the smallest step tried
+LS_C, LS_P, LS_ALPHA_MIN = 1e-8, 0.5, 1e-8
+
+
+class _NewtonStepper:
+    """The Newton loop both device steppers share (reference
+    implicit_euler_mg_balloon.h:40-120): ``n_newton`` iterations, no early
+    exit, each one
+
+        energy and gradient at x = curPos0 + dt qdot (one autograd pass)
+        per-face Hessian blocks at x, PSD-projected when ``psd_project``
+        vals = M + dt^2 K in the solver's layout (``_assemble``)
+        g = -(M (qdot - qdot0) + dt G + dt fExt)
+        hier = solver.refresh(vals); dx = V-cycles on H dx = g from zero
+                (``_solve``, mg_tolerance, max_cycles)
+        backtracking line search on E(qdot + alpha dx) from f0 (the energy
+                at x), LS_C / LS_P / LS_ALPHA_MIN
+        qdot = where(found and dx finite, qdot + alpha dx, qdot)
+
+    so a rejected iteration leaves qdot bitwise unchanged; the rejects are
+    counted on the device and read once, after the last iteration.
+    Subclasses set the state ``_init_newton`` names and ``solver``, and
+    define ``_assemble`` and ``_solve``.
+    """
+
+    def _init_newton(self, shell: ShellEnergy, M, dt, mg_tolerance, n_newton, max_cycles,
+                     psd_project, dtype):
+        device = shell.device
+        self.device, self.dtype = device, dtype
+        self.shell = shell
+        self.dt = float(dt)
+        self.mg_tolerance = float(mg_tolerance)
+        self.n_newton = int(n_newton)
+        self.max_cycles = int(max_cycles)
+        self.psd_project = bool(psd_project)
+        self.timed = False
+        self.last_rejected = 0
+        self.last_newton: list[dict] = []
+        self.nf = shell.F.shape[0]
+        self.Mdiag = torch.as_tensor(np.asarray(M.diagonal())).to(device=device, dtype=dtype)
+        self.F = torch.as_tensor(shell.F, dtype=torch.int64, device=device)
+        self.abars = shell.abars.to(dtype)
+        self.bend = shell.bend_state(dtype)
+
+    def _energy(self, x_flat):
+        s = self.shell
+        return _energy_sum(x_flat, self.F, self.abars, s.thickness, s.alpha,
+                           s.beta, s.material, bend=self.bend)
+
+    def _face9(self, v_flat):
+        """[nv*3] -> [nf, 9] per-face corner states."""
+        return v_flat.reshape(-1, 3)[self.F].reshape(self.nf, 9)
+
+    def _face_blocks(self, x_flat, x9):
+        """Per-face Hessians: [nf, 9, 9] stretch (+ [nf, 18, 18] bending)."""
+        return face_hessians(self.shell, x_flat, x9, self.abars, self.bend)
+
+    def _clock(self):
+        """Host clock, after a device sync when the stepper is timed."""
+        if self.timed and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def _mark(self, rec, name, t0):
+        """Close phase `name` of a timed iteration; returns the new start."""
+        if not self.timed:
+            return t0
+        t1 = self._clock()
+        rec[name] = rec.get(name, 0.0) + (t1 - t0)
+        return t1
+
+    def step(self, curPos, qdot, fExt):
+        """One implicit Euler step; returns (curPos_next [nv, 3], qdot_next
+        [3nv]) as float64 numpy arrays.
+
+        Newton iterations whose direction fails the line search (or is
+        non-finite) leave qdot bitwise unchanged; their count is reported in
+        ``last_rejected`` with a warning: the soft-failure analog of the
+        reference returning converged=false.
+        """
+        dev, dtype, dt = self.device, self.dtype, self.dt
+        shell = self.shell
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.float64)).to(device=dev, dtype=dtype)
+
+        curPos0 = t(curPos).reshape(-1)
+        qdot0 = t(qdot).reshape(-1)
+        fExt = t(fExt).reshape(-1)
+        Md = self.Mdiag
+        qdot = qdot0
+        nrej = torch.zeros((), dtype=torch.int64, device=dev)
+        self.last_newton = []
+        for _ in range(self.n_newton):
+            rec: dict = {}
+            t0 = self._clock()
+            x = curPos0 + dt * qdot
+            # the elastic energy at x is also the line search's f0 term
+            Ev0, G = energy_and_gradient(self._energy, x)
+            x9 = self._face9(x)
+            H = self._face_blocks(x, x9)
+            t0 = self._mark(rec, "assembly", t0)
+            if self.psd_project:
+                H = [psd_project_blocks(h) for h in H]
+            t0 = self._mark(rec, "psd", t0)
+            vals = self._assemble(H)
+            g = -(Md * (qdot - qdot0) + dt * G + dt * fExt)
+            t0 = self._mark(rec, "assembly", t0)
+            hier = self.solver.refresh(vals)
+            t0 = self._mark(rec, "refresh", t0)
+            dx, r_his, k = self._solve(hier, g)
+            # the loop stops early only below tol; at max_cycles read the last residual
+            converged = k < self.max_cycles or bool(r_his[k - 1] < self.mg_tolerance)
+            t0 = self._mark(rec, "vcycles", t0)
+            dq = qdot - qdot0
+            f0 = 0.5 * (dq * Md * dq).sum() + (x * fExt).sum() + Ev0
+            s = f0 + LS_C * (g * dx).sum()
+
+            # Line-search energies on the 1-D line x + (alpha dt) dx: the
+            # face corner states of x and dx are gathered once, so each
+            # trial is per-face arithmetic (reference backtracking
+            # semantics, sim_utils/implicit_euler_mg_balloon.h:80-114).
+            d9 = self._face9(dx)
+            if self.bend is not None:
+                opp, mask, bbars = self.bend
+                xo9 = x.reshape(-1, 3)[opp].reshape(self.nf, 9)
+                do9 = dx.reshape(-1, 3)[opp].reshape(self.nf, 9)
+
+            def line_energy(alpha):
+                qd = qdot + alpha * dx
+                dqa = qd - qdot0
+                Ek = 0.5 * (dqa * Md * dqa).sum()
+                newPos = curPos0 + dt * qd
+                ad = alpha * dt
+                e9 = x9 + ad * d9
+                ev = face_energy(e9, self.abars, shell.thickness, shell.alpha,
+                                 shell.beta, shell.material).sum()
+                if self.bend is not None:
+                    e18 = torch.cat([e9, xo9 + ad * do9], dim=1)
+                    ev = ev + face_bending_energy(
+                        e18, self.abars, bbars, mask, shell.thickness,
+                        shell.alpha, shell.beta, shell.material).sum()
+                return Ek + (newPos * fExt).sum() + ev
+
+            alpha, found = 1.0, False
+            while alpha > LS_ALPHA_MIN:
+                if bool(line_energy(alpha) <= s):  # one host sync per trial
+                    found = True
+                    break
+                alpha *= LS_P
+            # frozen-state guard: a rejected or non-finite direction leaves
+            # qdot BITWISE unchanged (`qdot + 0 * dx` would turn an inf
+            # direction into NaN)
+            good = torch.isfinite((dx * dx).sum()) & found
+            qdot = torch.where(good, qdot + alpha * dx, qdot)
+            nrej += (~good).to(torch.int64)
+            self._mark(rec, "line_search", t0)
+            self.last_newton.append({"residuals": k, "converged": converged,
+                                     "alpha": alpha, "found": found, **rec})
+        curPos1 = curPos0.reshape(-1, 3) + dt * qdot.reshape(-1, 3)
+        self.last_rejected = int(nrej)
+        if self.last_rejected:
+            warnings.warn(
+                f"balloon step: {self.last_rejected} Newton iteration(s)"
+                " rejected (line search failed or non-finite direction);"
+                " state frozen for those iterations", stacklevel=2,
+            )
+        return (curPos1.cpu().to(torch.float64).numpy(),
+                qdot.cpu().to(torch.float64).numpy())
+
+
+class BsrBalloonStepper(_NewtonStepper):
     """Implicit-Euler balloon step with the BSR (3x3-block) multigrid, on
     the shell's device.
 
     10 Newton iterations of H dx = -g with H = M + dt^2 K and a backtracking
-    line search (reference implicit_euler_mg_balloon.h:40-120). Takes the
-    SCALAR hierarchy from mg_precompute: the reference's 3-expanded block
-    prolongation (src/get_prolong.cpp:59-115) is the same scalar weight on
-    each DOF of a vertex.
+    line search (reference implicit_euler_mg_balloon.h:40-120; the loop of
+    ``_NewtonStepper``). Takes the SCALAR hierarchy from mg_precompute: the
+    reference's 3-expanded block prolongation (src/get_prolong.cpp:59-115)
+    is the same scalar weight on each DOF of a vertex.
 
     coarsest_nv: the hierarchy is extended down to about this many coarsest
     vertices (``extend_hierarchy``), since every Newton iteration pays a
@@ -162,20 +338,10 @@ class BsrBalloonStepper:
             mg = extend_hierarchy(mg, min_coarsest_nv=coarsest_nv)
         if dtype is None:
             dtype = torch.float64 if device.type == "cpu" else torch.float32
-        self.device, self.dtype = device, dtype
-        self.shell = shell
-        self.dt = float(dt)
-        self.mg_tolerance = float(mg_tolerance)
-        self.n_newton = int(n_newton)
-        self.max_cycles = int(max_cycles)
-        self.psd_project = bool(psd_project)
-        self.timed = False
-        self.last_rejected = 0
-        self.last_newton: list[dict] = []
+        self._init_newton(shell, M, dt, mg_tolerance, n_newton, max_cycles, psd_project, dtype)
         cfg = cfg or SolveConfig(smoother=SmootherType.CHEBYSHEV)
         nv = shell.n
         F = shell.F
-        self.nf = F.shape[0]
 
         # vertex-pair pattern in the SAME (face, a, b) flatten order as the
         # per-face Hessian blocks of _face_blocks
@@ -200,27 +366,7 @@ class BsrBalloonStepper:
         # off-diagonal vertex pairs get two face contributions on a closed
         # manifold, so W = 4 covers most slots
         self.asm = GatherAssembly(self.pattern, rows, cols, asm_w_cap, device)
-        Md = np.asarray(M.diagonal())
-        t = (lambda a, dt_: torch.as_tensor(np.asarray(a)).to(device=device, dtype=dt_))
-        self.Mv = t(Md[0::3], dtype)
-        self.Mdiag = t(Md, dtype)
-        self.F = t(F, torch.int64)
-        self.abars = shell.abars.to(dtype)
-        self.bend = shell.bend_state(dtype)
-
-    # ------------------------------------------------------------------
-    def _energy(self, x_flat):
-        s = self.shell
-        return _energy_sum(x_flat, self.F, self.abars, s.thickness, s.alpha,
-                           s.beta, s.material, bend=self.bend)
-
-    def _face9(self, v_flat):
-        """[nv*3] -> [nf, 9] per-face corner states."""
-        return v_flat.reshape(-1, 3)[self.F].reshape(self.nf, 9)
-
-    def _face_blocks(self, x_flat, x9):
-        """Per-face Hessians: [nf, 9, 9] stretch (+ [nf, 18, 18] bending)."""
-        return face_hessians(self.shell, x_flat, x9, self.abars, self.bend)
+        self.Mv = self.Mdiag[0::3].contiguous()
 
     def _assemble(self, H):
         """dt^2 K + M as [nnz_v, 3, 3] blocks (gather-only assembly)."""
@@ -232,123 +378,14 @@ class BsrBalloonStepper:
         eye3 = torch.eye(3, dtype=self.Mv.dtype, device=self.Mv.device)
         return self.asm((self.dt * self.dt) * torch.cat(ent), self.Mv[:, None, None] * eye3)
 
-    def _clock(self):
-        """Host clock, after a device sync when the stepper is timed."""
-        if self.timed and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def _mark(self, rec, name, t0):
-        """Close phase `name` of a timed iteration; returns the new start."""
-        if not self.timed:
-            return t0
-        t1 = self._clock()
-        rec[name] = rec.get(name, 0.0) + (t1 - t0)
-        return t1
-
-    def step(self, curPos, qdot, fExt):
-        """One implicit Euler step; returns (curPos_next [nv, 3], qdot_next
-        [3nv]) as float64 numpy arrays.
-
-        Newton iterations whose direction fails the line search (or is
-        non-finite) leave qdot bitwise unchanged; their count is reported in
-        ``last_rejected`` with a warning: the soft-failure analog of the
-        reference returning converged=false.
-        """
-        dev, dtype, dt = self.device, self.dtype, self.dt
-        shell = self.shell
-
-        def t(a):
-            return torch.as_tensor(np.asarray(a, dtype=np.float64)).to(device=dev, dtype=dtype)
-
-        nv = shell.n
-        curPos0 = t(curPos).reshape(-1)
-        qdot0 = t(qdot).reshape(-1)
-        fExt = t(fExt).reshape(-1)
-        Md = self.Mdiag
-        qdot = qdot0
-        nrej = torch.zeros((), dtype=torch.int64, device=dev)
-        self.last_newton = []
-        for _ in range(self.n_newton):
-            rec: dict = {}
-            t0 = self._clock()
-            x = curPos0 + dt * qdot
-            # the elastic energy at x is also the line search's f0 term
-            Ev0, G = energy_and_gradient(self._energy, x)
-            x9 = self._face9(x)
-            H = self._face_blocks(x, x9)
-            t0 = self._mark(rec, "assembly", t0)
-            if self.psd_project:
-                H = [psd_project_blocks(h) for h in H]
-            t0 = self._mark(rec, "psd", t0)
-            vals = self._assemble(H)
-            g = -(Md * (qdot - qdot0) + dt * G + dt * fExt)
-            t0 = self._mark(rec, "assembly", t0)
-            hier = self.solver.refresh(vals)
-            t0 = self._mark(rec, "refresh", t0)
-            dx2, r_his, k = bsr_solve_loop(
-                hier, g.reshape(nv, 3), torch.zeros((nv, 3), dtype=dtype, device=dev),
-                self.mg_tolerance, self.max_cycles, self.cfg,
-            )
-            # the loop stops early only below tol; at max_cycles read the last residual
-            converged = k < self.max_cycles or bool(r_his[k - 1] < self.mg_tolerance)
-            t0 = self._mark(rec, "vcycles", t0)
-            dx = dx2.reshape(-1)
-            dq = qdot - qdot0
-            f0 = 0.5 * (dq * Md * dq).sum() + (x * fExt).sum() + Ev0
-            s = f0 + 1e-8 * (g * dx).sum()
-
-            # Line-search energies on the 1-D line x + (alpha dt) dx: the
-            # face corner states of x and dx are gathered once, so each
-            # trial is per-face arithmetic (reference backtracking
-            # semantics, sim_utils/implicit_euler_mg_balloon.h:80-114).
-            d9 = self._face9(dx)
-            if self.bend is not None:
-                opp, mask, bbars = self.bend
-                xo9 = x.reshape(-1, 3)[opp].reshape(self.nf, 9)
-                do9 = dx.reshape(-1, 3)[opp].reshape(self.nf, 9)
-
-            def line_energy(alpha):
-                qd = qdot + alpha * dx
-                dqa = qd - qdot0
-                Ek = 0.5 * (dqa * Md * dqa).sum()
-                newPos = curPos0 + dt * qd
-                ad = alpha * dt
-                e9 = x9 + ad * d9
-                ev = face_energy(e9, self.abars, shell.thickness, shell.alpha,
-                                 shell.beta, shell.material).sum()
-                if self.bend is not None:
-                    e18 = torch.cat([e9, xo9 + ad * do9], dim=1)
-                    ev = ev + face_bending_energy(
-                        e18, self.abars, bbars, mask, shell.thickness,
-                        shell.alpha, shell.beta, shell.material).sum()
-                return Ek + (newPos * fExt).sum() + ev
-
-            alpha, found = 1.0, False
-            while alpha > 1e-8:
-                if bool(line_energy(alpha) <= s):  # one host sync per trial
-                    found = True
-                    break
-                alpha *= 0.5
-            # frozen-state guard: a rejected or non-finite direction leaves
-            # qdot BITWISE unchanged (`qdot + 0 * dx` would turn an inf
-            # direction into NaN)
-            good = torch.isfinite((dx * dx).sum()) & found
-            qdot = torch.where(good, qdot + alpha * dx, qdot)
-            nrej += (~good).to(torch.int64)
-            self._mark(rec, "line_search", t0)
-            self.last_newton.append({"residuals": k, "converged": converged,
-                                     "alpha": alpha, "found": found, **rec})
-        curPos1 = curPos0.reshape(-1, 3) + dt * qdot.reshape(-1, 3)
-        self.last_rejected = int(nrej)
-        if self.last_rejected:
-            warnings.warn(
-                f"balloon step: {self.last_rejected} Newton iteration(s)"
-                " rejected (line search failed or non-finite direction);"
-                " state frozen for those iterations", stacklevel=2,
-            )
-        return (curPos1.cpu().to(torch.float64).numpy(),
-                qdot.cpu().to(torch.float64).numpy())
+    def _solve(self, hier, g):
+        """The block V-cycles on [nv, 3]; returns (dx [3nv], r_his, k)."""
+        nv = self.shell.n
+        dx, r_his, k = bsr_solve_loop(
+            hier, g.reshape(nv, 3), torch.zeros((nv, 3), dtype=self.dtype, device=self.device),
+            self.mg_tolerance, self.max_cycles, self.cfg,
+        )
+        return dx.reshape(-1), r_his, k
 
 
 class BalloonNewtonSolver:
@@ -361,22 +398,27 @@ class BalloonNewtonSolver:
     entries into the finest nnz values (``hessian_values``) and refreshes
     the hierarchy through ``solver.solve``. dtype: float32 on an
     accelerator, float64 on the CPU unless given; the Hessian is computed
-    in it and PSD-projected per face (``psd_project_blocks``: the raw
-    shell Hessians go indefinite under large deformation, and the
-    SPD-assuming multigrid then diverges). cfg: multicolor GS unless given
-    (the reference's smoother family; the interleaved block patterns need
-    about 21 colors). build_solver=False: the assembly only, with
-    ``solver`` None (the row-partitioned ``parallel/balloon.py`` solves
-    through its own hierarchy).
+    in it. psd_project (default True): project each face's Hessian block
+    onto the PSD cone (``psd_project_blocks``, kernel K4 on the card): the
+    raw shell Hessians go indefinite under large deformation, and the
+    SPD-assuming multigrid then diverges; blocks that are PSD already pass
+    bitwise. cfg: multicolor GS unless given (the reference's smoother
+    family, and the JAX ``implicit_euler_mg_balloon``'s; the interleaved
+    block patterns need about 21 colors; ``DeviceBalloonStepper`` passes
+    Chebyshev, the JAX class's own default). build_solver=False: the
+    assembly only, with ``solver`` None (the row-partitioned
+    ``parallel/balloon.py`` solves through its own hierarchy).
     """
 
     def __init__(self, shell: ShellEnergy, M: sp.csr_matrix, mg, cfg=None,
-                 dtype: torch.dtype | None = None, build_solver: bool = True):
+                 dtype: torch.dtype | None = None, build_solver: bool = True,
+                 psd_project: bool = True):
         device = shell.device
         if dtype is None:
             dtype = torch.float64 if device.type == "cpu" else torch.float32
         self.device, self.dtype = device, dtype
         self.shell = shell
+        self.psd_project = bool(psd_project)
         cfg = cfg or SolveConfig(smoother=SmootherType.MULTICOLOR_GS)
         n3 = M.shape[0]
         rows, cols = shell._rows, shell._cols
@@ -397,16 +439,76 @@ class BalloonNewtonSolver:
                        if build_solver else None)
         self.last_newton: list[dict] = []
 
+    def values(self, H: list[torch.Tensor], dt: float) -> torch.Tensor:
+        """Finest nnz values of M + dt^2 K from the per-face blocks H (in
+        ``face_hessians``' order), gathered into the pattern's nnz slots."""
+        e = torch.cat([h.reshape(-1) for h in H])
+        return self.asm((dt * dt) * e, self.Mdiag)
+
     def hessian_values(self, x_flat, dt: float) -> torch.Tensor:
         """Finest nnz values of H = M + dt^2 K at the positions x_flat, on
         the device: the per-face Hessian blocks (stretching 9x9, bending
-        18x18), PSD-projected, gathered into the pattern's nnz slots."""
-        xv = torch.as_tensor(np.asarray(x_flat, dtype=np.float64)).to(
-            device=self.device, dtype=self.dtype).reshape(-1, 3)
-        x9 = xv[self.F].reshape(-1, 9)
-        H = face_hessians(self.shell, xv.reshape(-1), x9, self.abars, self.bend)
-        e = torch.cat([psd_project_blocks(h).reshape(-1) for h in H])
-        return self.asm((dt * dt) * e, self.Mdiag)
+        18x18), PSD-projected when ``psd_project``, gathered into the
+        pattern's nnz slots. x_flat: [3nv] numpy, or a tensor (no host
+        round trip)."""
+        if not isinstance(x_flat, torch.Tensor):
+            x_flat = torch.as_tensor(np.asarray(x_flat, dtype=np.float64))
+        xv = x_flat.to(device=self.device, dtype=self.dtype).reshape(-1, 3)
+        H = face_hessians(self.shell, xv.reshape(-1), xv[self.F].reshape(-1, 9), self.abars,
+                          self.bend)
+        if self.psd_project:
+            H = [psd_project_blocks(h) for h in H]
+        return self.values(H, dt)
+
+
+class DeviceBalloonStepper(_NewtonStepper):
+    """The implicit-Euler step on the 3-expanded scalar hierarchy with every
+    Newton iteration on the device (the JAX package's
+    ``DeviceBalloonStepper``).
+
+    mg: the block hierarchy (``mg_precompute_block``). Each of the
+    ``n_newton`` iterations (``_NewtonStepper``, no early exit) takes the
+    energy and gradient at x in one pass, the Hessian values of
+    ``newton_solver`` (a ``BalloonNewtonSolver``: per-face blocks,
+    PSD-projected when ``psd_project`` (K4), gathered into the 3-expanded
+    pattern), ``solver.refresh`` and ``solve_loop`` from zero (K1 for every
+    SpMV) to ``mg_tolerance`` in at most ``max_cycles``, then the line
+    search and the frozen-state guard. cfg: Chebyshev unless given (the
+    JAX class's default). dtype: float32 on an accelerator, float64 on the
+    CPU unless given. Runs on the shell's device.
+
+    Unlike ``implicit_euler_mg_balloon``, which crosses to numpy every
+    iteration, x, qdot, g, dx and the reject count stay tensors on the
+    device for the whole step. The JAX class jits the whole step into one
+    device program; PyTorch runs eagerly and has no counterpart of that,
+    so the loops are Python loops and the step reads the device at these
+    points: once per V-cycle (the solve loop's stopping test), once per
+    line-search trial, once for the reject count at the end; besides, the
+    refresh's coarse Cholesky checks its factor (one read), the Chebyshev
+    bounds are read once per refresh, and the step's inputs and outputs
+    cross as numpy. ``last_rejected`` and ``last_newton`` as in
+    ``BsrBalloonStepper``.
+    """
+
+    def __init__(self, shell: ShellEnergy, M: sp.csr_matrix, mg, dt: float,
+                 mg_tolerance: float = 2e-1, n_newton: int = 10,
+                 max_cycles: int = 20, cfg: SolveConfig | None = None,
+                 dtype: torch.dtype | None = None, psd_project: bool = True):
+        ns = BalloonNewtonSolver(shell, M, mg, cfg=cfg or SolveConfig(
+            smoother=SmootherType.CHEBYSHEV), dtype=dtype, psd_project=psd_project)
+        self.newton_solver = ns
+        self._init_newton(shell, M, dt, mg_tolerance, n_newton, max_cycles, psd_project,
+                          ns.dtype)
+        self.solver = ns.solver
+        self.cfg = ns.solver.cfg
+        self.pattern = ns.pattern
+
+    def _assemble(self, H):
+        return self.newton_solver.values(H, self.dt)
+
+    def _solve(self, hier, g):
+        return solve_loop(hier, g, torch.zeros_like(g), self.mg_tolerance, self.max_cycles,
+                          self.cfg)
 
 
 def implicit_euler_mg_balloon(
@@ -450,15 +552,15 @@ def implicit_euler_mg_balloon(
         if verbose:
             print(f"  newton {it}: g.dx = {g @ dx:.6e}, cycles {len(r_his)}")
         # backtracking line search (reference :80-114)
-        alpha, p, c = 1.0, 0.5, 1e-8
-        s = total_energy(qdot) + c * (g @ dx)
+        alpha = 1.0
+        s = total_energy(qdot) + LS_C * (g @ dx)
         found = False
-        while alpha > 1e-8:
+        while alpha > LS_ALPHA_MIN:
             if total_energy(qdot + alpha * dx) <= s:
                 qdot = qdot + alpha * dx
                 found = True
                 break
-            alpha *= p
+            alpha *= LS_P
         if verbose:
             print(f"  alpha: {alpha}")
         newton_solver.last_newton.append(
@@ -501,13 +603,13 @@ def implicit_euler_balloon_direct(
         H = (M + dt * dt * K).tocsc()
         g = -(M @ (qdot - qdot0) + dt * G + dt * fExt)
         dx = splu(H).solve(g)
-        alpha, p, c = 1.0, 0.5, 1e-8
-        s = total_energy(qdot) + c * (g @ dx)
-        while alpha > 1e-8:
+        alpha = 1.0
+        s = total_energy(qdot) + LS_C * (g @ dx)
+        while alpha > LS_ALPHA_MIN:
             if total_energy(qdot + alpha * dx) <= s:
                 qdot = qdot + alpha * dx
                 break
-            alpha *= p
+            alpha *= LS_P
         if verbose:
             print(f"  newton {it} (direct): alpha {alpha}")
         curPos = curPos0 + dt * qdot.reshape(-1, 3)

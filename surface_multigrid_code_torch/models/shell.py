@@ -26,6 +26,10 @@ Energy densities (the reference's formulas):
   energy k dA lambda1^2 otherwise.
 - Bending with the midedge-average second fundamental form
   (MidedgeAverageFormulation.cpp:7-246; StVK/NeoHookean bending terms).
+- The angle-based midedge SFF (MidedgeAngle{Tan,Sin}Formulation.cpp),
+  batched over faces: ``edge_tables`` (host), ``edge_thetas`` and
+  ``second_fundamental_form_angle``; no energy of the port uses it, as in
+  the JAX package.
 
 Lame parameters from Young's modulus / Poisson ratio as in the reference
 (main.cpp:63-67): alpha = Y nu / (1 - nu^2), beta = Y / (2 (1 + nu)).
@@ -226,6 +230,77 @@ def opposite_vertices(F: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
                 opp[f, c] = got[1]
                 mask[f, c] = 1.0
     return opp, mask
+
+
+def edge_tables(F: np.ndarray):
+    """Per-face-corner edge ids and orientations + per-edge dihedral frame.
+
+    edge i of face f joins F[f,(i+1)%3] -> F[f,(i+2)%3] (directed);
+    the canonical frame of an undirected edge is taken from the first face
+    in which it appears: (v0, v1, v2 = that face's opposite vertex,
+    v3 = the other face's opposite vertex).  orient[f,i] = +1 for the
+    canonical face, -1 for the other (MeshConnectivity::faceEdgeOrientation
+    semantics feeding the alpha = theta/2 + orient*phi composition,
+    MidedgeAngleTanFormulation.cpp:141)."""
+    F = np.asarray(F, dtype=np.int64)
+    m = F.shape[0]
+    edges: dict[tuple[int, int], int] = {}
+    ev = []  # v0, v1, v2, v3 (v3 = -1 until second face seen)
+    eid = np.zeros((m, 3), dtype=np.int64)
+    orient = np.zeros((m, 3))
+    for f in range(m):
+        for c in range(3):
+            a, b = int(F[f, (c + 1) % 3]), int(F[f, (c + 2) % 3])
+            key = (min(a, b), max(a, b))
+            if key not in edges:
+                edges[key] = len(ev)
+                ev.append([a, b, int(F[f, c]), -1])
+                eid[f, c] = edges[key]
+                orient[f, c] = 1.0
+            else:
+                e = edges[key]
+                ev[e][3] = int(F[f, c])
+                eid[f, c] = e
+                orient[f, c] = -1.0
+    ev = np.asarray(ev, dtype=np.int64)
+    return eid, orient, ev
+
+
+def edge_thetas(V: torch.Tensor, ev: torch.Tensor) -> torch.Tensor:
+    """Signed dihedral angle per edge [ne] of positions V [n, 3] and the
+    edge frames ev [ne, 4] of ``edge_tables`` (GeometryDerivatives
+    edgeTheta/angle: theta = 2 atan2((n0 x n1).axis/|axis|, n0.n1 +
+    |n0||n1|)); 0 on boundary edges (ev[:, 3] < 0)."""
+    q0, q1 = V[ev[:, 0]], V[ev[:, 1]]
+    q2 = V[ev[:, 2]]
+    q3 = V[ev[:, 3].clamp_min(0)]
+    n0 = torch.linalg.cross(q0 - q2, q1 - q2)
+    n1 = torch.linalg.cross(q1 - q3, q0 - q3)
+    axis = q1 - q0
+    num = _dot(torch.linalg.cross(n0, n1), axis) / torch.linalg.norm(axis, dim=-1)
+    den = _dot(n0, n1) + torch.linalg.norm(n0, dim=-1) * torch.linalg.norm(n1, dim=-1)
+    theta = 2.0 * torch.atan2(num, den)
+    return torch.where(ev[:, 3] >= 0, theta, torch.zeros_like(theta))
+
+
+def second_fundamental_form_angle(x9, theta3, phi3, orient3, variant: str):
+    """Angle-based midedge SFF [..., 2, 2] of faces x9 [..., 9], with the
+    dihedral angles theta3, edge DOFs phi3 and orientations orient3 of
+    their three edges [..., 3] (MidedgeAngle{Tan,Sin}Formulation.cpp:
+    110-270): II_i = 2 h_i * tan_or_sin(theta_e/2 + orient*phi_e), h_i the
+    altitude from corner i; b = [[II0+II1, II0],[II0, II0+II2]].
+    variant: "tan" or "sin"."""
+    q = x9.unflatten(-1, (3, 3))
+    n = torch.linalg.cross(q[..., 1, :] - q[..., 0, :], q[..., 2, :] - q[..., 0, :])
+    nnorm = torch.linalg.norm(n, dim=-1)
+    II = []
+    for i in range(3):
+        e = q[..., (i + 2) % 3, :] - q[..., (i + 1) % 3, :]
+        h = nnorm / torch.linalg.norm(e, dim=-1)
+        alpha = 0.5 * theta3[..., i] + orient3[..., i] * phi3[..., i]
+        g = torch.tan(alpha) if variant == "tan" else torch.sin(alpha)
+        II.append(2.0 * h * g)
+    return _sym2(II[0] + II[1], II[0], II[0] + II[2])
 
 
 def second_fundamental_form(x18, mask3):

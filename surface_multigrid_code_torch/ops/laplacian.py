@@ -1,8 +1,10 @@
 """Cotangent Laplacian and mass-matrix assembly (ports ``surface_multigrid_code_tpu/ops/laplacian.py``).
 
-Host code returning scipy.sparse CSR, used by precompute, and
-``massmatrix_barycentric_diag`` on tensors, the mass of MCF's device step
-(the JAX package's ``massmatrix_barycentric_diag_jax``).
+Host code returning scipy.sparse CSR, used by precompute, ``cotmatrix_dense``
+for LSCM's tiny patches, and two functions on tensors, on the tensors'
+device: ``massmatrix_barycentric_diag``, the mass of MCF's device step,
+and ``cotmatrix_entries_tensor`` (the JAX package's
+``massmatrix_barycentric_diag_jax`` and ``cotmatrix_entries_jax``).
 
 Conventions follow libigl as used by the reference examples:
 - `cotmatrix` is negative semi-definite (diagonal negative); the Poisson
@@ -73,6 +75,39 @@ def cotmatrix(V: np.ndarray, F: np.ndarray) -> sp.csr_matrix:
     L = sp.coo_matrix((X, (I, J)), shape=(n, n)).tocsr()
     L.sum_duplicates()
     return L
+
+
+def cotmatrix_dense(V: np.ndarray, F: np.ndarray) -> np.ndarray:
+    """Dense cotan Laplacian for tiny LSCM patches.
+
+    Analog of reference src/cotmatrix_dense.cpp:26-41.
+    """
+    V = np.asarray(V, dtype=np.float64)
+    F = np.asarray(F, dtype=np.int64)
+    n = V.shape[0]
+    C = cotmatrix_entries(V, F)
+    A = np.zeros((n, n))
+    for c in range(3):
+        i = F[:, (c + 1) % 3]
+        j = F[:, (c + 2) % 3]
+        w = C[:, c]
+        np.add.at(A, (i, j), w)
+        np.add.at(A, (j, i), w)
+        np.add.at(A, (i, i), -w)
+        np.add.at(A, (j, j), -w)
+    return A
+
+
+def cotmatrix_entries_tensor(V: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
+    """``cotmatrix_entries`` on tensors, on V's device (differentiable):
+    half-cotangents C [m, 3] of 3D positions V [n, 3], faces F [m, 3]."""
+    P0, P1, P2 = V[F[:, 0]], V[F[:, 1]], V[F[:, 2]]
+    l0 = ((P1 - P2) ** 2).sum(dim=1)
+    l1 = ((P2 - P0) ** 2).sum(dim=1)
+    l2 = ((P0 - P1) ** 2).sum(dim=1)
+    quad = 4.0 * torch.linalg.norm(torch.cross(P1 - P0, P2 - P0, dim=1), dim=1)
+    return torch.stack([(l1 + l2 - l0) / quad, (l2 + l0 - l1) / quad,
+                        (l0 + l1 - l2) / quad], dim=1)
 
 
 def massmatrix_barycentric(V: np.ndarray, F: np.ndarray) -> sp.csr_matrix:

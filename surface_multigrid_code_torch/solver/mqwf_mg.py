@@ -38,6 +38,7 @@ from surface_multigrid_code_torch.solver.vcycle import (
     solve_loop_ir,
 )
 from surface_multigrid_code_torch.utils.device import resolve_device
+from surface_multigrid_code_torch.utils.profiler import profile_region
 
 
 @dataclass
@@ -209,15 +210,17 @@ def min_quad_with_fixed_mg_solve(
     dt = torch.float64 if refine else data.dtype
     rhs_d = torch.as_tensor(np.ascontiguousarray(rhs_u)).to(data.device, dt)
     z_d = torch.as_tensor(np.ascontiguousarray(z_u)).to(data.device, dt)
-    if refine:
-        z_d, r_his_d, k = solve_loop_ir(
-            data.hier, data.A64, rhs_d, z_d, float(tolerance), int(max_iter), data.cfg
-        )
-    else:
-        z_d, r_his_d, k = solve_loop(
-            data.hier, rhs_d, z_d, float(tolerance), int(max_iter), data.cfg
-        )
-    z_u = z_d.to("cpu", torch.float64).numpy()
+    with profile_region("MG: total VCycle", trace=True):
+        if refine:
+            z_d, r_his_d, k = solve_loop_ir(
+                data.hier, data.A64, rhs_d, z_d, float(tolerance), int(max_iter), data.cfg
+            )
+        else:
+            z_d, r_his_d, k = solve_loop(
+                data.hier, rhs_d, z_d, float(tolerance), int(max_iter), data.cfg
+            )
+        # the copy to the host waits for the last cycle
+        z_u = z_d.to("cpu", torch.float64).numpy()
     r_his = [float(r) for r in r_his_d[:k].cpu().numpy()]
     converged = bool(r_his and r_his[-1] <= tolerance)
 

@@ -48,6 +48,7 @@ from surface_multigrid_code_torch.solver.galerkin import (
 )
 from surface_multigrid_code_torch.solver.vcycle import DeviceHierarchy, DeviceLevel, solve_loop
 from surface_multigrid_code_torch.utils.device import resolve_device
+from surface_multigrid_code_torch.utils.profiler import profile_region
 
 __all__ = ["RefreshableMGSolver", "csr_slot_map"]
 
@@ -197,9 +198,10 @@ class RefreshableMGSolver:
         else:
             rhs_u = t(rhs)
             z0_u = torch.zeros_like(rhs_u) if z0 is None else t(z0)
-        z_u, r_his, k = solve_loop(self.refresh(vals), rhs_u, z0_u, float(tolerance),
-                                   int(max_iter), self.cfg)
-        z_u = z_u.cpu().to(torch.float64).numpy()
+        with profile_region("MG: refresh+solve", trace=True):
+            z_u, r_his, k = solve_loop(self.refresh(vals), rhs_u, z0_u, float(tolerance),
+                                       int(max_iter), self.cfg)
+            z_u = z_u.cpu().to(torch.float64).numpy()
         if self.known.size:
             z = np.empty_like(rhs)
             z[self.unknown] = z_u

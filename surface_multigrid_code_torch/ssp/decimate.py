@@ -17,6 +17,7 @@ import numpy as np
 
 from surface_multigrid_code_torch.config import DecimationType
 from surface_multigrid_code_torch.ssp import _native
+from surface_multigrid_code_torch.utils.profiler import profile_region
 
 #: keys of the flattened collapse log (everything query walks need)
 LOG_KEYS = (
@@ -43,12 +44,13 @@ def SSP_decimate(
       IM   - coarse vertex -> original vertex id (reference I);
       log  - flattened collapse log dict (includes IM/IMF/FIM for queries).
     """
-    out = _native.decimate(
-        VO, FO, int(tarF), int(dec_type),
-        random_variant=seed is not None,
-        seed=0 if seed is None else int(seed),
-        verbose=verbose,
-    )
+    with profile_region("SSP: decimate"):
+        out = _native.decimate(
+            VO, FO, int(tarF), int(dec_type),
+            random_variant=seed is not None,
+            seed=0 if seed is None else int(seed),
+            verbose=verbose,
+        )
     if out is None:
         return False, None, None, None, None, None
     log = {k: out[k] for k in LOG_KEYS}

@@ -170,7 +170,9 @@ def test_port_imports_no_jax():
         "for need in ('cli', 'query.device', 'solver.serialize', 'utils.upsample',\n"
         "             'solver.ordering', 'parallel.comm', 'parallel.halo', 'parallel.mcf',\n"
         "             'parallel.wellhalo', 'parallel.spmd',\n"
-        "             'parallel.balloon'):\n"
+        "             'parallel.balloon', 'ops.lscm', 'utils.barycentric', 'ssp.quadrics',\n"
+        "             'utils.param', 'solver.host_reference', 'utils.profiler',\n"
+        "             'utils.hostmem', 'utils.mesh'):\n"
         "    assert pkg.__name__ + '.' + need in names, need\n"
         "print(len(names))\n"
     )
