@@ -28,7 +28,9 @@ paths through their public entry points:
 - point queries (``query.device``, K5): 10K, 100K and 1M points walked
   fine -> coarse on the icosphere(7) log of 161,280 records, held to the
   host walk and walked back; examples 07-09 on bunny against
-  ``data/golden``;
+  ``data/golden``; K5 held bit for bit to its plain version on that log
+  and on a copy with one record's parameterisations NaN (the no-win
+  path), both directions, f32 and f64; the public call at 1M by part;
 - persistence and the CLI: the ico7 and bunny_15K device hierarchies
   through ``save_device_hierarchy`` / ``load_device_hierarchy`` (bitwise,
   the same solve), the host hierarchy npz, and ``cli.main`` running
@@ -192,6 +194,9 @@ QUERY_BAR = (1e-6, 1e-3, 0.99)
 ROUND_TRIP_BAR = (5e-3, 5e-2, 0.99)
 QUERY_LIMITS = {("plain", torch.float32): (0.0, 1.0), ("plain", torch.float64): (0.0, 1.0),
                 ("host", torch.float64): (2.5e-15, 1.0)}
+# The no-win log's NaN record, counted from the end: late, so that ~0.1%
+# of random queries walk through it, with records after it to go on to.
+NO_WIN_BACK = 2000
 # Examples 08 / 09 as (tag, dec_type, seed, subdivisions), bunny to 500 faces
 EXAMPLES = (("ex08", 1, None, 2), ("ex09", 0, 10, 3))
 # Peaks of one H100 SXM (NVIDIA's data sheet) for the bounds: HBM3 bytes
@@ -2062,7 +2067,10 @@ def query_path(V, F, Vc, Fc, qlog, dev):
 
     t0 = time.perf_counter()
     dlog = device_log(qlog, dev)
-    log(f"phase 13: device_log of {dlog.n_collapse} records in {time.perf_counter() - t0:.3f} s")
+    log(f"phase 13: device_log of {dlog.n_collapse} records in {time.perf_counter() - t0:.3f} s, "
+        f"of which the packed walk tables {dlog.pack_s:.3f} s; packed blocks f2c "
+        f"{dlog.fwd.nbytes} B, c2f {dlog.bwd.nbytes} B (CSR arrays "
+        f"{sum(t.numel() * t.element_size() for t in dlog.tensors().values()) - dlog.fwd.nbytes - dlog.bwd.nbytes} B)")
     scale = float(np.linalg.norm(V.max(0) - V.min(0)))
     warm = random_queries(F, 1000, seed=0)
     query_fine_to_coarse_device(dlog, *warm)
@@ -2170,39 +2178,69 @@ def walk_compare(a, b, dest):
             "median_pos_err": float(np.median(err))}
 
 
+def no_win_log(qlog, r):
+    """A copy of the log whose record r has NaN parameterisations: no face
+    of r wins in either direction, so each walk through r keeps its point
+    there and goes on from the same face (K5's search path)."""
+    out = dict(qlog)
+    for k in ("uv_pre", "uv_post"):
+        a = np.array(qlog[k], dtype=np.float64)
+        a[qlog["voff"][r]:qlog["voff"][r + 1]] = np.nan
+        out[k] = a
+    return out
+
+
 def check_query_kernel(V, F, Vc, Fc, qlog, dev):
     """Phase 13: K5 against its plain version on the card, f32 and f64,
     both directions, at QUERY_CHECK_N queries, and the f64 K5 against the
-    host walk (which runs in f64). Each is held to QUERY_LIMITS. Returns
-    the largest |BC difference| from the plain version."""
+    host walk (which runs in f64), on the log and on its no-win copy
+    (record NO_WIN_BACK from the end NaN; the walks through it must
+    differ from the clean log's). Each is held to QUERY_LIMITS. Returns
+    the largest |BC difference| from the plain version and the records."""
     from surface_multigrid_code_torch.query.device import device_log, query_walk, query_walk_plain
     from surface_multigrid_code_torch.ssp import _native
 
-    im_fwd = np.zeros(int(qlog["IM"].max()) + 1, dtype=np.int64)
-    im_fwd[qlog["IM"]] = np.arange(qlog["IM"].shape[0])
-    dests = {True: (lambda bc, bf: positions(bc, im_fwd[bf], Vc)),
+    # working ids -> positions: coarse vertices where they are coarse (a
+    # walk through the no-win record may end on one that is not)
+    Vw = np.array(V, dtype=np.float64)
+    Vw[qlog["IM"]] = Vc
+    dests = {True: (lambda bc, bf: positions(bc, bf, Vw)),
              False: (lambda bc, bf: positions(bc, bf, V))}
+    r = qlog["voff"].shape[0] - 1 - NO_WIN_BACK
+    logs = {"": qlog, " no-win": no_win_log(qlog, r)}
     worst, recs = 0.0, {}
     for dt in (torch.float32, torch.float64):
-        dlog = device_log(qlog, dev, dt)
-        for forward in (True, False):
-            inputs = walk_inputs(F, Fc, qlog, QUERY_CHECK_N, forward, dev, dt)
-            k = walked(query_walk, dlog, forward, inputs)
-            checks = {"plain": walk_compare(walked(query_walk_plain, dlog, forward, inputs), k,
-                                            dests[forward])}
-            if dt == torch.float64:
-                host = _native.query_walk(qlog, forward, *(t.cpu().numpy() for t in inputs))
-                checks["host"] = walk_compare(tuple(torch.as_tensor(h) for h in host), k,
-                                              dests[forward])
-            label = f"{'f2c' if forward else 'c2f'} {str(dt)[6:]}"
-            for against, rec in checks.items():
-                limit = QUERY_LIMITS[(against, dt)]
-                log(f"phase 13: K5 {label} against the {against} walk, {QUERY_CHECK_N} queries: "
-                    f"{rec} (limits {limit})")
-                if rec["max_pos_err"] > limit[0] or rec["same_ids"] < limit[1]:
-                    raise RuntimeError(f"K5 {label} disagrees with the {against} walk: {rec}")
-            worst = max(worst, checks["plain"]["max_bc_diff"])
-            recs[label] = checks
+        clean = {}
+        for tag, lg in logs.items():
+            dlog = device_log(lg, dev, dt)
+            for forward in (True, False):
+                inputs = walk_inputs(F, Fc, qlog, QUERY_CHECK_N, forward, dev, dt)
+                k = walked(query_walk, dlog, forward, inputs)
+                checks = {"plain": walk_compare(walked(query_walk_plain, dlog, forward, inputs),
+                                                k, dests[forward])}
+                if dt == torch.float64:
+                    host = _native.query_walk(lg, forward, *(t.cpu().numpy() for t in inputs))
+                    checks["host"] = walk_compare(tuple(torch.as_tensor(h) for h in host), k,
+                                                  dests[forward])
+                label = f"{'f2c' if forward else 'c2f'} {str(dt)[6:]}{tag}"
+                for against, rec in checks.items():
+                    limit = QUERY_LIMITS[(against, dt)]
+                    log(f"phase 13: K5 {label} against the {against} walk, {QUERY_CHECK_N} "
+                        f"queries: {rec} (limits {limit})")
+                    if rec["max_pos_err"] > limit[0] or rec["same_ids"] < limit[1]:
+                        raise RuntimeError(f"K5 {label} disagrees with the {against} walk: {rec}")
+                if tag:
+                    moved = [(a != b).reshape(a.shape[0], -1).any(1)
+                             for a, b in zip(k, clean[forward])]
+                    checks["through_record"] = int((moved[0] | moved[1] | moved[2]).sum())
+                    log(f"phase 13: K5 {label}: {checks['through_record']} of {QUERY_CHECK_N} "
+                        f"queries walked through the NaN record {r}")
+                    if checks["through_record"] == 0:
+                        raise RuntimeError(f"K5 {label}: no query reached the NaN record")
+                else:
+                    clean[forward] = k
+                worst = max(worst, checks["plain"]["max_bc_diff"])
+                recs[label] = checks
     return worst, recs
 
 
@@ -2258,7 +2296,12 @@ def query_timings(F, Fc, qlog, host, dev, reps=5):
     events (queued_ms), its bound from the steps and bytes the plain
     version counts on the same queries, and the plain version's wall time
     per call at QUERY_CHECK_N. host: phase 13's host-walk times."""
-    from surface_multigrid_code_torch.query.device import device_log, query_walk, query_walk_plain
+    from surface_multigrid_code_torch.query.device import (
+        device_log,
+        launch_shape,
+        query_walk,
+        query_walk_plain,
+    )
 
     dlog = device_log(qlog, dev)
     out = {}
@@ -2275,8 +2318,11 @@ def query_timings(F, Fc, qlog, host, dev, reps=5):
         walked(query_walk_plain, dlog, True, inputs, stats=stats)
         nbytes, ops = walk_bytes(qlog, stats, True, n, 4)
         bound, by = bound_ms(nbytes, ops)
+        per_query = stats["query_steps"].cpu().numpy()
         rec = {"ms": ms, "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops,
                "steps": stats["steps"], "records_visited": int(stats["records"].sum()),
+               "steps_mean": float(per_query.mean()), "steps_max": int(per_query.max()),
+               "warp_efficiency": warp_efficiency(per_query),
                "host_walk_ms": 1e3 * host[n]["host_walk_s"],
                "device_call_ms": 1e3 * host[n]["device_call_s"]}
         if n == QUERY_CHECK_N:
@@ -2288,7 +2334,73 @@ def query_timings(F, Fc, qlog, host, dev, reps=5):
         log(f"phase 13: K5 f2c {n} queries: {ms:.4f} ms (events), bound {bound:.4f} ms ({by}: "
             f"{nbytes} B, {stats['steps']} steps, {rec['records_visited']} of "
             f"{dlog.n_collapse} records), host walk {rec['host_walk_ms']:.3f} ms"
-            + (f", plain {rec['plain_ms']:.3f} ms" if "plain_ms" in rec else ""))
+            + (f", plain {rec['plain_ms']:.3f} ms" if "plain_ms" in rec else "")
+            + f"; steps a query mean {rec['steps_mean']:.3f}, max {rec['steps_max']}, warp "
+            f"efficiency {rec['warp_efficiency']:.4f}")
+    threads, smem = launch_shape(dlog.fwd.chunks)
+    out["launch"] = {"threads": threads, "shared_bytes": smem, "chunks": dlog.fwd.chunks}
+    log(f"phase 13: K5 f32 f2c launch: {threads} threads a block, {smem} B of dynamic shared "
+        f"memory a block ({dlog.fwd.chunks} chunks of 16 B a thread)")
+    return out
+
+
+def warp_efficiency(steps):
+    """Sum of the queries' steps over the sum, per warp of 32 consecutive
+    queries, of 32 times its longest walk: the share of a warp's thread
+    steps that walk."""
+    steps = np.concatenate([steps, np.zeros(-len(steps) % 32, dtype=steps.dtype)])
+    return float(steps.sum() / (32 * steps.reshape(-1, 32).max(1)).sum())
+
+
+def f2c_narrow(dlog, BC, BF, FIdx, parts):
+    """query_fine_to_coarse_device with the narrow types (float32, int32)
+    sent across and widened on the host with numpy, timed by the same
+    parts ("d2h", then "widen")."""
+    from surface_multigrid_code_torch.query.device import _I32, _Parts, _queries, query_walk
+
+    clock = _Parts(parts, dlog.device)
+    queries = _queries(dlog, BC, BF, FIdx, _I32.max, dlog.dim_off.shape[0] - 1, clock)
+    BC, BF, FIdx = query_walk(dlog, True, *queries)
+    clock.mark("walk")
+    BF, FIdx = dlog.im_fwd[BF], dlog.FIM[FIdx]
+    clock.mark("id_maps")
+    BC, BF, FIdx = (t.cpu().numpy() for t in (BC, BF, FIdx))
+    clock.mark("d2h")
+    out = BC.astype(np.float64), BF.astype(np.int64), FIdx.astype(np.int64)
+    clock.mark("widen")
+    return out
+
+
+def public_call_parts(F, qlog, dev, n=QUERY_COUNTS[-1]):
+    """Phase 13: query_fine_to_coarse_device at n queries by part
+    (validation, H2D, walk, id maps, D2H with the widening on the card)
+    against the same call with the narrow types across and numpy widening
+    them on the host (f2c_narrow), in turns port, narrow, narrow, port;
+    the results must be bitwise equal. Returns {"port"|"narrow": {part:
+    median seconds}}."""
+    from surface_multigrid_code_torch.query.device import device_log, query_fine_to_coarse_device
+
+    dlog = device_log(qlog, dev)
+    q = random_queries(F, n, seed=n)
+    fns = {"port": (lambda parts: query_fine_to_coarse_device(dlog, *q, parts=parts)),
+           "narrow": (lambda parts: f2c_narrow(dlog, *q, parts))}
+    fns["port"](None)
+    runs, outs = {k: [] for k in fns}, {}
+    for name in ("port", "narrow", "narrow", "port"):
+        parts = {}
+        t0 = time.perf_counter()
+        outs[name] = fns[name](parts)
+        parts["total"] = time.perf_counter() - t0
+        runs[name].append(parts)
+    for a, b in zip(outs["port"], outs["narrow"]):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise RuntimeError("phase 13: the narrow D2H changed query_fine_to_coarse_device's "
+                               "result")
+    out = {name: {k: float(np.median([p[k] for p in ps])) for k in ps[0]}
+           for name, ps in runs.items()}
+    for name, rec in out.items():
+        log(f"phase 13: query_fine_to_coarse_device {n} queries, {name}: "
+            + ", ".join(f"{k} {1e3 * v:.3f} ms" for k, v in rec.items()))
     return out
 
 
@@ -3310,7 +3422,9 @@ def ranks_static(V, mg, A, M, backend, dev):
 
 def ptxas_functions(report):
     """Per kernel of the build's ``-Xptxas -v`` report (lines): {mangled
-    name: {"registers", "spill_stores", "spill_loads", "stack"}} in bytes."""
+    name: {"registers", "spill_stores", "spill_loads", "stack",
+    "static_smem"}} in bytes (K5's shared memory is dynamic: phase 13
+    prints it)."""
     import re
 
     out, name = {}, None
@@ -3330,6 +3444,9 @@ def ptxas_functions(report):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out[name]["static_smem"] = int(m.group(1))
     return out
 
 
@@ -3363,7 +3480,9 @@ def main() -> int:
         f"spills: {spills or 'none'}")
     sign_regs = {name: rep for name, rep in ptxas_functions(report).items()
                  if "ns_sign_apply" in name}
-    for name, rep in sign_regs.items():
+    walk_regs = {name: rep for name, rep in ptxas_functions(report).items()
+                 if "query_walk" in name}
+    for name, rep in {**sign_regs, **walk_regs}.items():
         log(f"  ptxas {name}: {rep}")
 
     V, F, mg, A, M, t_mg = ico_system(depth)
@@ -3472,6 +3591,7 @@ def main() -> int:
     launches["query_walk"] = read_counts("phase 13", ("query_walk",))["query_walk"]
     errs["query_walk"], walk_checks = check_query_kernel(Vq, Fq, Vqc, Fqc, qlog, dev)
     walk_t = query_timings(Fq, Fqc, qlog, queries, dev)
+    walk_t["public_call"] = public_call_parts(Fq, qlog, dev)
     del qlog
     ker["query_walk"] = {"kernel": walk_t[QUERY_CHECK_N]["ms"],
                          "plain": walk_t[QUERY_CHECK_N]["plain_ms"],
@@ -3531,7 +3651,7 @@ def main() -> int:
     log(json.dumps({"sign_shapes": signs, "mesh": BALLOON_MESH, "ptxas": sign_regs,
                     "edge_eigs": {"eigenvalues": EDGE_EIGS, "least_eig_and_distance": edge}}))
     log(json.dumps({"queries": {"by_n": queries, "k5": walk_t, "checks": walk_checks,
-                                "examples": examples},
+                                "examples": examples, "ptxas": walk_regs},
                     "mesh": f"icosphere({QUERY_DEPTH}) to F/64, dec_type 1", "dtype": "float32"}))
     log(json.dumps({"persistence": persisted, "cli": clis}))
     log(json.dumps({"sharded": sharded, "dtype": "float32 (the balloon direction and step: "

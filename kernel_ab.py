@@ -3,10 +3,11 @@
 
 Run from the repository root:
 
-    python3 kernel_ab.py spmv|bsr|psd NAME=FILE.cu [NAME=FILE.cu ...] [--reps N]
+    python3 kernel_ab.py spmv|bsr|psd|query NAME=FILE.cu [NAME=FILE.cu ...] [--reps N]
 
 Each FILE is a version of one source of ``surface_multigrid_code_torch/csrc/``
-(``spmv.cu`` for K1/K2, ``bsr_spmv.cu`` for K3, ``psd.cu`` for K4): the
+(``spmv.cu`` for K1/K2, ``bsr_spmv.cu`` for K3, ``psd.cu`` for K4,
+``query_walk.cu`` for K5): the
 checkout's, or one taken from an earlier commit with
 ``git show REV:surface_multigrid_code_torch/csrc/FILE > OUT``. Each is
 compiled by nvcc with the port's flags into a library of its own. Every
@@ -30,9 +31,19 @@ time per call from the profiler (kernel events only), L2 warm.
   plain version (held at TOL only in f64); then the time per call on
   bunny_15K's 31,604 face Hessians at the rest pose (9x9) and on as many
   random symmetric 18x18 blocks, f32 and f64.
+- ``query``: the f2c walk (f32) at each of ``chip_smoke.QUERY_COUNTS`` on
+  phase 13's log (icosphere(7) to F/64, 161,280 records): each version's
+  result against the plain version at ``QUERY_LIMITS`` (bit for bit),
+  then its time per call by CUDA events (``chip_smoke.queued_ms``, the
+  calls queued behind a spin kernel) in turns; then the walk alone on the
+  queries sorted by start face, and the sort, the walk and the unpermute
+  together (the JAX package's ``_query_chunked`` order), against the
+  unsorted walk.
 
 A version whose SpMV entry points take no ``lanes`` argument (one thread
-per row, as in earlier commits) is called without it. Prints one line per
+per row, as in earlier commits) is called without it; a K5 version whose
+entry points take no packed blocks (``const void* pack``: the CSR walk of
+earlier commits) is called with the CSR arrays. Prints one line per
 shape, the card's name and power limit, and a JSON line ``{"<kernel>_ab":
 ...}``.
 """
@@ -56,8 +67,12 @@ EPI_CODE = {None: 0, "axpby": 1, "resid": 2, "add": 3, "resid_scaled": 4}
 
 def signatures(kernel, lanes):
     """{entry point: argtypes} of a version of the kernel's source; ``lanes``:
-    whether its SpMV entry points take a lanes argument."""
+    whether its SpMV entry points take a lanes argument (K5: whether its
+    entry points take the packed blocks)."""
     ln = [_I] * lanes
+    if kernel == "query":
+        walk = [_P] * 9 + [_I] * 5 + [_P] if lanes else [_P] * 12 + [_I] * 3 + [_P]
+        return {"smg_query_walk_f32": walk, "smg_query_walk_f64": walk}
     if kernel == "spmv":
         return {"smg_spmv_fused_f32": [_P] * 8 + [_D, _P, _I] + ln + [_I, _P],
                 "smg_spmv_fused_planes_f32": [_P] * 8 + [_D, _P, _I, _I] + ln + [_I, _P]}
@@ -69,6 +84,9 @@ def signatures(kernel, lanes):
 
 # the profiler's name of each kernel's launches
 EVENT = {"spmv": "spmv", "bsr": "bsr_spmv", "psd": "ns_sign_apply"}
+# the text of a source whose entry points take the variant's argument
+VARIANT = {"spmv": "int lanes", "bsr": "int lanes", "psd": "int lanes",
+           "query": "const void* pack"}
 
 
 def build(kernel, versions):
@@ -88,7 +106,7 @@ def build(kernel, versions):
         _, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {versions[name]}:\n{err}")
-        lanes = "int lanes" in Path(versions[name]).read_text()
+        lanes = VARIANT[kernel] in Path(versions[name]).read_text()
         lib = ctypes.CDLL(str(so))
         for fn, argtypes in signatures(kernel, lanes).items():
             getattr(lib, fn).argtypes = argtypes
@@ -143,6 +161,99 @@ def psd_caller(lib, X, coeffs):
     args = [X.data_ptr(), Y.data_ptr(), X.shape[0], X.shape[1],
             ctypes.cast(coeffs, ctypes.c_void_p), len(NS_SCHEDULE)]
     return launcher(fn, args, Y)
+
+
+def query_caller(lib, packed, dlog, work):
+    """One launch of this library's K5, f2c, on the tensors ``work`` (in place)."""
+    from surface_multigrid_code_torch.query.device import launch_shape
+
+    BC, BF, FIdx = work
+    fn = lib.smg_query_walk_f32 if BC.dtype == torch.float32 else lib.smg_query_walk_f64
+    p = (lambda t: t.data_ptr())
+    if packed:
+        threads, smem = launch_shape(dlog.fwd.chunks)
+        args = [p(dlog.subset), p(dlog.fidx_post), p(dlog.dim_off), p(dlog.dim_dat),
+                p(dlog.fwd.rec), p(dlog.fwd.pack), p(BC), p(BF), p(FIdx), BC.shape[0],
+                dlog.n_collapse, 1, threads, smem]
+    else:
+        uv_src, uv_dst, foff, fuv, fidx = dlog.side(True)
+        args = [p(dlog.voff), p(dlog.subset), p(uv_src), p(uv_dst), p(foff), p(fuv), p(fidx),
+                p(dlog.dim_off), p(dlog.dim_dat), p(BC), p(BF), p(FIdx), BC.shape[0],
+                dlog.n_collapse, 1]
+    return launcher(fn, args, work)
+
+
+def query_ab(libs, dev, reps):
+    from surface_multigrid_code_torch.query.device import device_log, query_walk_plain
+
+    _V, F, Vc, Fc, qlog, _ = cs.query_system(cs.QUERY_DEPTH)
+    dlog = device_log(qlog, dev)
+    im_fwd = dlog.im_fwd.cpu().numpy()
+    dest = (lambda bc, bf: cs.positions(bc, im_fwd[bf], Vc))
+    limit = cs.QUERY_LIMITS[("plain", torch.float32)]
+    recs = []
+    for n in cs.QUERY_COUNTS:
+        inputs = cs.walk_inputs(F, Fc, qlog, n, True, dev, torch.float32)
+        ref = cs.walked(query_walk_plain, dlog, True, inputs)
+        work = [t.clone() for t in inputs]
+
+        def prep():
+            for w, t in zip(work, inputs):
+                w.copy_(t)
+
+        runs, sorted_runs = {}, {}
+        for name, (lib, packed) in libs.items():
+            run = query_caller(lib, packed, dlog, work)
+            prep()
+            rec = cs.walk_compare(ref, run(), dest)
+            cs.log(f"{name} {n} queries against the plain walk: {rec} (limits {limit})")
+            if rec["max_pos_err"] > limit[0] or rec["same_ids"] < limit[1]:
+                raise RuntimeError(f"{name} disagrees with the plain walk at {n} queries")
+            runs[name] = run
+
+            def sorted_walk(run=run):  # sort by start face, walk, unpermute
+                perm = torch.argsort(inputs[2], stable=True)
+                for w, t in zip(work, inputs):
+                    w.copy_(t[perm])
+                run()
+                return [torch.empty_like(w).index_copy_(0, perm, w) for w in work]
+
+            if not all(torch.equal(a, b) for a, b in zip(sorted_walk(), ref)):
+                raise RuntimeError(f"{name}: the sorted walk differs from the plain walk")
+            sorted_runs[name] = sorted_walk
+        perm = torch.argsort(inputs[2], stable=True)
+        presorted = [t[perm] for t in inputs]
+
+        def prep_sorted():
+            for w, t in zip(work, presorted):
+                w.copy_(t)
+
+        order = [*runs, *reversed(runs)]
+        warm = {name: [] for name in runs}
+        for name in order:
+            warm[name].append(cs.queued_ms(prep, runs[name], reps))
+        alone = {name: [] for name in runs}
+        for name in order:
+            alone[name].append(cs.queued_ms(prep_sorted, runs[name], reps))
+        srt = {name: [] for name in runs}
+        for name in order:
+            srt[name].append(cs.queued_ms(lambda: None, sorted_runs[name], reps))
+        stats = {}
+        cs.walked(query_walk_plain, dlog, True, inputs, stats=stats)
+        nbytes, ops = cs.walk_bytes(qlog, stats, True, n, 4)
+        rec = {"queries": n, "bound_ms": cs.bound_ms(nbytes, ops)[0],
+               **{f"{name}_ms": float(np.median(t)) for name, t in warm.items()},
+               **{f"{name}_presorted_ms": float(np.median(t)) for name, t in alone.items()},
+               **{f"{name}_sorted_ms": float(np.median(t)) for name, t in srt.items()}}
+        recs.append(rec)
+        cs.log(f"f2c {n} queries: bound {1e3 * rec['bound_ms']:.3f} us; ms per call (events), in "
+               f"turns: {ms_line(warm)}; the walk alone on the queries sorted by start face: "
+               f"{ms_line(alone)}; sorted, walk and unpermute included: {ms_line(srt)}")
+    return recs
+
+
+def ms_line(turns):
+    return ", ".join(f"{name} {[round(t, 4) for t in ts]}" for name, ts in turns.items())
 
 
 def kernel_ms(fn, reps, event, before=None):
@@ -320,7 +431,7 @@ def psd_ab(libs, dev, reps):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("kernel", choices=("spmv", "bsr", "psd"))
+    ap.add_argument("kernel", choices=("spmv", "bsr", "psd", "query"))
     ap.add_argument("versions", nargs="+", help="NAME=FILE.cu")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
@@ -331,7 +442,8 @@ def main() -> int:
     card = cs.card_line()
     cs.log(card)
     libs = build(args.kernel, versions)
-    recs = {"spmv": spmv_ab, "bsr": bsr_ab, "psd": psd_ab}[args.kernel](libs, dev, args.reps)
+    recs = {"spmv": spmv_ab, "bsr": bsr_ab, "psd": psd_ab,
+            "query": query_ab}[args.kernel](libs, dev, args.reps)
     cs.log(card)
     cs.log(json.dumps({f"{args.kernel}_ab": recs, "versions": versions, "reps": args.reps}))
     return 0

@@ -26,22 +26,55 @@
 // faces. The host wrapper (query/device.query_walk) passes the arrays of
 // the direction, so the kernel has no direction branch inside a step.
 //
-// Design: one thread per query walking the CSR log as it is. Nothing is
-// padded, sorted or chunked: a GPU thread has its own control flow, and a
-// finished thread idles only until the last walker of its warp ends. The
-// state of a query (3 barycentrics, 3 vertex ids, the face id and d) stays
-// in registers for the whole walk and is written once at the end. Ids are
-// int32 (the wrapper checks that they fit).
-//
 // What bounds it: the bytes it must move are the query arrays in and out
-// and, once each, the log records the walk visits (subset, uv, faces of a
-// record; the dim_dat range of each face read): at 1M queries on the
-// icosphere(7) log of 161,280 records tens of MB, some 20 us at HBM rate.
-// The walk itself is a chain of dependent loads (dim_off -> dim_dat ->
-// voff -> subset search -> uv -> faces), a few hundred cycles each, so
-// a thread's time is its step count times that latency; the card hides it
-// only with many queries in flight. Sorting the queries by walk start, so
-// that a warp's walkers retire together, is later work.
+// and, once each, the log records the walk visits: at 1M queries on the
+// icosphere(7) log of 161,280 records tens of MB, some 20-60 us at HBM
+// rate. A query walks ~17 records. Walking the CSR log as it is (the
+// version before this layout) read ~100 scattered 4-byte values a step,
+// ~30 of them a chain of dependent loads (dim_off -> dim_dat -> voff ->
+// three binary searches in the subset -> uv -> per face fuv -> uv_dst).
+//
+// Design: one thread per query, and a log laid out for the walk. Per
+// direction, device_log precomputes where each destination face leads:
+// for record d and its face k, the record the host walk visits next from
+// that face (next_rec) and the local ids there of the three corners the
+// query then carries (next_lid, the lower_bound the next step would do).
+// Each record is one 16-byte-aligned block: its source parameterisation
+// (nv + 1 pairs: the last is the CSR entry after the record, which the
+// host reads when a corner is not in the subset, as after a no-win), its
+// destination parameterisation, then one 16-byte entry per destination
+// face (its three local ids, next_rec, the next record's block offset, nv
+// and nf, and next_lid). After a step that commits, the next step knows
+// its block, its sizes and its three local ids from the winner's entry:
+// it issues the three uv_src loads and the cp.async copies of uv_dst and
+// the face entries together, one round of wide loads, and reads the face
+// loop from shared memory (a slice private to the thread, [chunk][thread]
+// interleaved). Only the first step and a step after a no-win (where no
+// face's barycentrics beat 1, e.g. NaN) scan dim_dat and binary-search
+// the CSR subset as before, through the per-record table rec
+// {block, nv | nf << 16, voff, foff}. The query's global vertex ids and
+// face id are read from the CSR arrays only when they are needed: at a
+// no-win and at the end of the walk, from the last commit's record and
+// face. A thread's state (3 barycentrics, 3 local ids, the record and the
+// last commit) stays in registers; the results are written once.
+//
+// What bounds it now (H100, PERF.md): the face loop, ~90 instructions a
+// face (two IEEE divisions among them) in a dependent chain: at 10K
+// queries (~2 warps an SM) a step is that chain's latency, ~4,400 cycles.
+// At 100K and 1M the card is full, and the warps of random queries differ
+// in their records' face counts and walk lengths: the same kernel on the
+// queries sorted by start face is 1.5x faster at 1M. Fewer bytes a step
+// (the face entries outside the block), copying a record a warp at a time
+// and thread-contiguous slices each measured no faster.
+
+// The precomputed ids are the host walk's: next_rec is the dim_dat search
+// and next_lid the lower_bound, both done exactly on integers, so the
+// walk visits the same records in the same order and reads the same
+// parameterisation entries. After a commit the corners a query carries
+// are in the next record's subset (the record holds the face); after a
+// no-win they may not be, and lower_bound may then give nv, where the
+// host reads the entry after the record (past the last record, the
+// packed block holds (0, 0)).
 //
 // Arithmetic is in T (float for the public query functions, as the JAX
 // package walks in float32; double to hold the kernel against the host
@@ -55,17 +88,27 @@
 
 namespace {
 
+constexpr int kMaxThreads = 64;
+
+template <typename T>
+struct Vec2;
+template <>
+struct Vec2<float> {
+  using type = float2;
+};
+template <>
+struct Vec2<double> {
+  using type = double2;
+};
+
 template <typename T>
 struct Args {
-  const int* voff;      // [n_collapse + 1] record -> first subset entry
-  const int* subset;    // [voff[n]] sorted global vertex ids per record
-  const T* uv_src;      // [voff[n], 2] the walk's source parameterisation
-  const T* uv_dst;      // [voff[n], 2] its destination parameterisation
-  const int* foff;      // [n_collapse + 1] record -> first destination face
-  const int* fuv;       // [foff[n], 3] destination faces, local (record) ids
-  const int* fidx;      // [foff[n]] destination faces, working-mesh face ids
+  const int* subset;    // [voff[n]] sorted global vertex ids per record (CSR)
+  const int* fidx;      // [foff[n]] destination faces, working-mesh face ids (CSR)
   const int* dim_off;   // [nF_working + 1] face -> first dim_dat entry
   const int* dim_dat;   // ascending record ids whose pre-patch holds the face
+  const int4* rec;      // [n_collapse] {block, nv | nf << 16, voff, foff}
+  const int4* pack;     // the direction's record blocks, 16-byte chunks
   T* BC;                // [nq, 3] in place
   int* BF;              // [nq, 3] in place
   int* FIdx;            // [nq] in place
@@ -90,68 +133,109 @@ __device__ __forceinline__ double rn_sub(double a, double b) { return __dsub_rn(
 __device__ __forceinline__ float rn_div(float a, float b) { return __fdiv_rn(a, b); }
 __device__ __forceinline__ double rn_div(double a, double b) { return __ddiv_rn(a, b); }
 
+__device__ __forceinline__ int byte_of(int word, int i) {
+  return static_cast<int>((static_cast<unsigned>(word) >> (8 * i)) & 0xffu);
+}
+
+// 16 bytes from global to shared memory, asynchronously (kept in L1 too:
+// many queries walk the same records).
+__device__ __forceinline__ void cp_async16(int4* dst, const int4* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The record after d that holds face f: the smallest dim_dat entry > d
+// (forward) or the largest < d (backward); -1 if none.
 template <typename T>
-__global__ void __launch_bounds__(128) query_walk_kernel(const Args<T> a) {
+__device__ int next_record(const Args<T>& a, int f, int d) {
+  const int lo = __ldg(a.dim_off + f), hi = __ldg(a.dim_off + f + 1);
+  if (a.forward) {
+    for (int k = lo; k < hi; ++k) {
+      const int e = __ldg(a.dim_dat + k);
+      if (e > d) return e;
+    }
+  } else {
+    for (int k = hi - 1; k >= lo; --k) {
+      const int e = __ldg(a.dim_dat + k);
+      if (e < d) return e;
+    }
+  }
+  return -1;
+}
+
+// lower_bound of each of bf in the record's sorted subset (CSR, from voff).
+template <typename T>
+__device__ void locate(const Args<T>& a, const int4 r, const int* bf, int* lid) {
+  const int* subset = a.subset + r.z;
+  const int nv = r.y & 0xffff;
+  for (int c = 0; c < 3; ++c) {
+    int first = 0, count = nv;
+    while (count > 0) {
+      const int half = count >> 1;
+      if (__ldg(subset + first + half) < bf[c]) {
+        first += half + 1;
+        count -= half + 1;
+      } else {
+        count = half;
+      }
+    }
+    lid[c] = first;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads) query_walk_kernel(const Args<T> a) {
+  using P = typename Vec2<T>::type;
+  constexpr int kPer = 16 / static_cast<int>(sizeof(P));  // uv pairs per 16-byte chunk
+  extern __shared__ int4 smem[];
   const int qi = blockIdx.x * blockDim.x + threadIdx.x;
   if (qi >= a.nq) return;
-  T bc[3] = {a.BC[3 * qi], a.BC[3 * qi + 1], a.BC[3 * qi + 2]};
+  int4* slice = smem + threadIdx.x;  // chunk j of this thread at slice[j * stride]
+  const int stride = blockDim.x;
+
   int bf[3] = {a.BF[3 * qi], a.BF[3 * qi + 1], a.BF[3 * qi + 2]};
   int f = a.FIdx[qi];
-  int d = a.forward ? -1 : a.n_collapse;
+  int d = next_record(a, f, a.forward ? -1 : a.n_collapse);
+  if (d < 0) return;  // no record holds the face: the query stays as it is
+  T bc[3] = {a.BC[3 * qi], a.BC[3 * qi + 1], a.BC[3 * qi + 2]};
+  int4 r = __ldg(a.rec + d);
+  int lid[3];
+  locate(a, r, bf, lid);
+  int blk = r.x, nv = r.y & 0xffff, nf = r.y >> 16;
+  // The last commit: its record (-1: bf and f are current), face and local ids.
+  int cd = -1, ck = 0, cz = 0;
   while (true) {
-    const int lo = __ldg(a.dim_off + f), hi = __ldg(a.dim_off + f + 1);
-    int next = -1;
-    if (a.forward) {
-      for (int k = lo; k < hi; ++k) {
-        const int e = __ldg(a.dim_dat + k);
-        if (e > d) {
-          next = e;
-          break;
-        }
-      }
-    } else {
-      for (int k = hi - 1; k >= lo; --k) {
-        const int e = __ldg(a.dim_dat + k);
-        if (e < d) {
-          next = e;
-          break;
-        }
-      }
-    }
-    if (next < 0) break;
-    d = next;
-
-    const int v0 = __ldg(a.voff + d), nv = __ldg(a.voff + d + 1) - v0;
-    const int* subset = a.subset + v0;
+    const int4* block = a.pack + blk;
+    const int nus = (nv + kPer) / kPer;      // chunks of the nv + 1 source pairs
+    const int nud = (nv + kPer - 1) / kPer;  // chunks of the nv destination pairs
+    for (int j = 0; j < nud + nf; ++j) cp_async16(slice + j * stride, block + nus + j);
+    const P* src = reinterpret_cast<const P*>(block);
+    const P p0 = __ldg(src + lid[0]), p1 = __ldg(src + lid[1]), p2 = __ldg(src + lid[2]);
     T qx = T(0), qy = T(0);
-    for (int c = 0; c < 3; ++c) {
-      int first = 0, count = nv;  // lower_bound of bf[c] in the sorted subset
-      while (count > 0) {
-        const int half = count >> 1;
-        if (__ldg(subset + first + half) < bf[c]) {
-          first += half + 1;
-          count -= half + 1;
-        } else {
-          count = half;
-        }
-      }
-      const int g = v0 + first;
-      qx = rn_add(qx, rn_mul(bc[c], a.uv_src[2 * g]));
-      qy = rn_add(qy, rn_mul(bc[c], a.uv_src[2 * g + 1]));
-    }
+    qx = rn_add(qx, rn_mul(bc[0], p0.x));
+    qy = rn_add(qy, rn_mul(bc[0], p0.y));
+    qx = rn_add(qx, rn_mul(bc[1], p1.x));
+    qy = rn_add(qy, rn_mul(bc[1], p1.y));
+    qx = rn_add(qx, rn_mul(bc[2], p2.x));
+    qy = rn_add(qy, rn_mul(bc[2], p2.y));
+    cp_async_wait_all();
 
-    const int f0 = __ldg(a.foff + d), nf = __ldg(a.foff + d + 1) - f0;
-    const int* tri = a.fuv + 3 * f0;
     T bestmind = T(1);
     int best = -1;
     T B0 = T(0), B1 = T(0), B2 = T(0);
     for (int k = 0; k < nf; ++k) {
-      const int ia = v0 + __ldg(tri + 3 * k), ib = v0 + __ldg(tri + 3 * k + 1),
-                ic = v0 + __ldg(tri + 3 * k + 2);
-      const T ax = a.uv_dst[2 * ia], ay = a.uv_dst[2 * ia + 1];
-      const T v0x = rn_sub(a.uv_dst[2 * ib], ax), v0y = rn_sub(a.uv_dst[2 * ib + 1], ay);
-      const T v1x = rn_sub(a.uv_dst[2 * ic], ax), v1y = rn_sub(a.uv_dst[2 * ic + 1], ay);
-      const T v2x = rn_sub(qx, ax), v2y = rn_sub(qy, ay);
+      const int z = slice[(nud + k) * stride].z;
+      const int ia = byte_of(z, 0), ib = byte_of(z, 1), ic = byte_of(z, 2);
+      const P A = reinterpret_cast<const P*>(slice + (ia / kPer) * stride)[ia % kPer];
+      const P B = reinterpret_cast<const P*>(slice + (ib / kPer) * stride)[ib % kPer];
+      const P C = reinterpret_cast<const P*>(slice + (ic / kPer) * stride)[ic % kPer];
+      const T v0x = rn_sub(B.x, A.x), v0y = rn_sub(B.y, A.y);
+      const T v1x = rn_sub(C.x, A.x), v1y = rn_sub(C.y, A.y);
+      const T v2x = rn_sub(qx, A.x), v2y = rn_sub(qy, A.y);
       const T d00 = rn_add(rn_mul(v0x, v0x), rn_mul(v0y, v0y));
       const T d01 = rn_add(rn_mul(v0x, v1x), rn_mul(v0y, v1y));
       const T d11 = rn_add(rn_mul(v1x, v1x), rn_mul(v1y, v1y));
@@ -170,16 +254,49 @@ __global__ void __launch_bounds__(128) query_walk_kernel(const Args<T> a) {
         B2 = w;
       }
     }
-    if (best < 0) continue;  // no face won: the point stays, the walk goes on
-    B0 = B0 > T(0) ? B0 : T(0);
-    B1 = B1 > T(0) ? B1 : T(0);
-    B2 = B2 > T(0) ? B2 : T(0);
-    const T s = rn_add(rn_add(B0, B1), B2);
-    bc[0] = rn_div(B0, s);
-    bc[1] = rn_div(B1, s);
-    bc[2] = rn_div(B2, s);
-    for (int c = 0; c < 3; ++c) bf[c] = __ldg(subset + __ldg(tri + 3 * best + c));
-    f = __ldg(a.fidx + f0 + best);
+    if (best >= 0) {
+      B0 = B0 > T(0) ? B0 : T(0);
+      B1 = B1 > T(0) ? B1 : T(0);
+      B2 = B2 > T(0) ? B2 : T(0);
+      const T s = rn_add(rn_add(B0, B1), B2);
+      bc[0] = rn_div(B0, s);
+      bc[1] = rn_div(B1, s);
+      bc[2] = rn_div(B2, s);
+      // {next_rec, its block, fuv bytes | next nv << 24, next_lid bytes | next nf << 24}
+      const int4 e = slice[(nud + best) * stride];
+      cd = d;
+      ck = best;
+      cz = e.z;
+      if (e.x < 0) break;
+      d = e.x;
+      blk = e.y;
+      nv = byte_of(e.z, 3);
+      nf = byte_of(e.w, 3);
+      lid[0] = byte_of(e.w, 0);
+      lid[1] = byte_of(e.w, 1);
+      lid[2] = byte_of(e.w, 2);
+      continue;
+    }
+    // No face won: the point stays, and the walk goes on from the same face
+    // with the host's search.
+    if (cd >= 0) {
+      r = __ldg(a.rec + cd);
+      for (int c = 0; c < 3; ++c) bf[c] = __ldg(a.subset + r.z + byte_of(cz, c));
+      f = __ldg(a.fidx + r.w + ck);
+      cd = -1;
+    }
+    d = next_record(a, f, d);
+    if (d < 0) break;
+    r = __ldg(a.rec + d);
+    locate(a, r, bf, lid);
+    blk = r.x;
+    nv = r.y & 0xffff;
+    nf = r.y >> 16;
+  }
+  if (cd >= 0) {
+    r = __ldg(a.rec + cd);
+    for (int c = 0; c < 3; ++c) bf[c] = __ldg(a.subset + r.z + byte_of(cz, c));
+    f = __ldg(a.fidx + r.w + ck);
   }
   a.BC[3 * qi] = bc[0];
   a.BC[3 * qi + 1] = bc[1];
@@ -190,34 +307,40 @@ __global__ void __launch_bounds__(128) query_walk_kernel(const Args<T> a) {
   a.FIdx[qi] = f;
 }
 
+// threads a block (at most kMaxThreads) and its dynamic shared memory
+// (threads x the largest record's uv_dst and face chunks x 16 bytes) come
+// from the wrapper (query/device.launch_shape).
 template <typename T>
-int query_walk(const Args<T>& a, void* stream_ptr) {
+int query_walk(const Args<T>& a, int threads, int smem, void* stream_ptr) {
   if (a.nq <= 0) return static_cast<int>(cudaGetLastError());
-  constexpr int kThreads = 128;
-  const int blocks = (a.nq + kThreads - 1) / kThreads;
-  query_walk_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream_ptr)>>>(a);
+  if (threads <= 0 || threads > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        query_walk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int blocks = (a.nq + threads - 1) / threads;
+  query_walk_kernel<T><<<blocks, threads, smem, static_cast<cudaStream_t>(stream_ptr)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // The arrays of one direction (see Args); forward is 1 for fine -> coarse.
-extern "C" int smg_query_walk_f32(const int* voff, const int* subset, const float* uv_src,
-                                  const float* uv_dst, const int* foff, const int* fuv,
-                                  const int* fidx, const int* dim_off, const int* dim_dat,
+extern "C" int smg_query_walk_f32(const int* subset, const int* fidx, const int* dim_off,
+                                  const int* dim_dat, const void* rec, const void* pack,
                                   float* BC, int* BF, int* FIdx, int nq, int n_collapse,
-                                  int forward, void* stream) {
-  const Args<float> a{voff, subset, uv_src, uv_dst, foff, fuv, fidx, dim_off, dim_dat,
-                      BC, BF, FIdx, nq, n_collapse, forward};
-  return query_walk<float>(a, stream);
+                                  int forward, int threads, int smem, void* stream) {
+  const Args<float> a{subset, fidx, dim_off, dim_dat, static_cast<const int4*>(rec),
+                      static_cast<const int4*>(pack), BC, BF, FIdx, nq, n_collapse, forward};
+  return query_walk<float>(a, threads, smem, stream);
 }
 
-extern "C" int smg_query_walk_f64(const int* voff, const int* subset, const double* uv_src,
-                                  const double* uv_dst, const int* foff, const int* fuv,
-                                  const int* fidx, const int* dim_off, const int* dim_dat,
+extern "C" int smg_query_walk_f64(const int* subset, const int* fidx, const int* dim_off,
+                                  const int* dim_dat, const void* rec, const void* pack,
                                   double* BC, int* BF, int* FIdx, int nq, int n_collapse,
-                                  int forward, void* stream) {
-  const Args<double> a{voff, subset, uv_src, uv_dst, foff, fuv, fidx, dim_off, dim_dat,
-                       BC, BF, FIdx, nq, n_collapse, forward};
-  return query_walk<double>(a, stream);
+                                  int forward, int threads, int smem, void* stream) {
+  const Args<double> a{subset, fidx, dim_off, dim_dat, static_cast<const int4*>(rec),
+                       static_cast<const int4*>(pack), BC, BF, FIdx, nq, n_collapse, forward};
+  return query_walk<double>(a, threads, smem, stream);
 }

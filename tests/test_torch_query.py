@@ -23,6 +23,7 @@ from surface_multigrid_code_tpu.utils.synthetic import icosphere
 
 from surface_multigrid_code_torch.query import device as qd
 from surface_multigrid_code_torch.query.maps import query_coarse_to_fine, query_fine_to_coarse
+from surface_multigrid_code_torch.ssp import _native
 from surface_multigrid_code_torch.ssp.decimate import SSP_decimate
 
 torch.set_num_threads(1)
@@ -237,3 +238,186 @@ def test_jax_and_port_decimations_give_one_log():
     assert ok and okj and sorted(log) == sorted(logj)
     for k in log:
         assert np.array_equal(log[k], logj[k]), k
+
+
+def _brute_tables(log, forward):
+    """next_rec / next_lid of walk_tables by the host's own searches, one
+    destination face row at a time (the dim_dat scan, np.searchsorted left)."""
+    side = "post" if forward else "pre"
+    voff, sub = log["voff"], log["subset"]
+    foff, fuv, fidx = log[f"foff_{side}"], log[f"fuv_{side}"], log[f"fidx_{side}"]
+    dim_off, dim_dat = log["dim_off"], log["dim_dat"]
+    nxt = np.full(fidx.shape[0], -1, dtype=np.int64)
+    lid = np.zeros((fidx.shape[0], 3), dtype=np.int64)
+    for d in range(voff.shape[0] - 1):
+        for i in range(foff[d], foff[d + 1]):
+            row = dim_dat[dim_off[fidx[i]]:dim_off[fidx[i] + 1]]
+            later = row[row > d] if forward else row[row < d][::-1]
+            if later.size:
+                nxt[i] = later[0]
+                s = sub[voff[nxt[i]]:voff[nxt[i] + 1]]
+                lid[i] = np.searchsorted(s, sub[voff[d] + fuv[i]], side="left")
+    return nxt, lid
+
+
+@pytest.mark.parametrize("forward", [True, False], ids=["f2c", "c2f"])
+def test_walk_tables_match_brute_force(ico3, forward):
+    log = ico3[4]
+    nxt, lid = qd.walk_tables(qd.device_log(log, "cpu"), forward)
+    want_nxt, want_lid = _brute_tables(log, forward)
+    assert np.array_equal(nxt.numpy(), want_nxt)
+    assert np.array_equal(lid.numpy(), want_lid)
+    assert (want_nxt >= 0).any() and (want_nxt < 0).any()
+
+
+def _unpack(walk, n_pairs_dtype, nv, nf):
+    """Record d's block of a PackedWalk as numpy: (src [nv + 1, 2],
+    dst [nv, 2], faces [nf, 4] int32)."""
+    words = walk.pack.numpy()
+    per = 16 // (2 * np.dtype(n_pairs_dtype).itemsize)
+    nus, nud = (nv + per) // per, (nv + per - 1) // per
+    raw = words.reshape(-1).view(np.uint8)
+
+    def pairs(chunk, count):
+        b = raw[16 * chunk: 16 * chunk + count * 2 * np.dtype(n_pairs_dtype).itemsize]
+        return b.view(n_pairs_dtype).reshape(count, 2)
+
+    def block(start):
+        return pairs(start, nv + 1), pairs(start + nus, nv), words[start + nus + nud:][:nf]
+    return block
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_packed_blocks_unpack_to_csr(ico3, dtype):
+    log = ico3[4]
+    dl = qd.device_log(log, "cpu", dtype)
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    voff = log["voff"]
+    for forward in (True, False):
+        side = "post" if forward else "pre"
+        src, dst = (log["uv_pre"], log["uv_post"]) if forward else (log["uv_post"], log["uv_pre"])
+        src = np.vstack([src, np.zeros((1, 2))]).astype(np_dt)
+        dst = dst.astype(np_dt)
+        foff, fuv = log[f"foff_{side}"], log[f"fuv_{side}"]
+        walk = dl.packed(forward)
+        rec = walk.rec.numpy()
+        nxt, lid = (t.numpy() for t in qd.walk_tables(dl, forward))
+        assert rec.dtype == np.int32 and walk.pack.dtype == torch.int32
+        assert np.array_equal(rec[:, 2], voff[:-1]) and np.array_equal(rec[:, 3], foff[:-1])
+        most = 0
+        for d in range(voff.shape[0] - 1):
+            nv, nf = voff[d + 1] - voff[d], foff[d + 1] - foff[d]
+            assert rec[d, 1] == nv | (nf << 16)
+            s, t, faces = _unpack(walk, np_dt, nv, nf)(rec[d, 0])
+            assert np.array_equal(s, src[voff[d]:voff[d + 1] + 1])
+            assert np.array_equal(t, dst[voff[d]:voff[d + 1]])
+            b = faces[:, 2:].view(np.uint8).reshape(nf, 8).astype(np.int64)
+            rows = slice(foff[d], foff[d + 1])
+            assert np.array_equal(b[:, :3], fuv[rows]) and np.array_equal(b[:, 4:7], lid[rows])
+            assert np.array_equal(faces[:, 0], nxt[rows])
+            to = nxt[rows]
+            has = to >= 0
+            assert np.array_equal(faces[:, 1], np.where(has, rec[to, 0], -1))
+            assert np.array_equal(b[:, 3], np.where(has, np.diff(voff)[to], 0))
+            assert np.array_equal(b[:, 7], np.where(has, np.diff(foff)[to], 0))
+            per = 16 // (2 * np.dtype(np_dt).itemsize)
+            most = max(most, (nv + per - 1) // per + nf)
+        assert walk.chunks == most
+        assert walk.nbytes == 4 * (rec.size + walk.pack.numel())
+    assert dl.pack_s > 0
+
+
+def _no_win_log(log, r):
+    """A copy of the log whose record r has NaN parameterisations: no face
+    of r wins in either direction, so every walk through r stays put there."""
+    out = dict(log)
+    for k in ("uv_pre", "uv_post"):
+        a = np.array(log[k], dtype=np.float64)
+        a[log["voff"][r]:log["voff"][r + 1]] = np.nan
+        out[k] = a
+    return out
+
+
+@pytest.mark.parametrize("forward", [True, False], ids=["f2c", "c2f"])
+def test_no_win_step_follows_the_host_walk(ico3, forward):
+    """Through a record where no face wins, the plain walk keeps the point
+    and goes on from the same face as the host walk does: the host's
+    records, its lower_bound where a carried corner is missing from the
+    next record, at the file's bars (f32) and to rounding in f64."""
+    V, F, Vc, Fc, log = ico3
+    n = log["voff"].shape[0] - 1
+    r = n - n // 5  # late, so that many queries pass it, with records after it
+    nan = _no_win_log(log, r)
+    if forward:
+        bc, bf, fids = _rand_queries(F, 3000, seed=8)
+    else:
+        bc, bf, fids = _rand_queries(Fc, 3000, seed=8)
+        bf, fids = log["IM"][bf], log["IMF"][fids]
+    host = _native.query_walk(nan, forward, bc.copy(), bf.copy(), fids.copy())  # in place
+    Vw = np.array(V, dtype=np.float64)  # working ids -> coarse positions where coarse
+    Vw[log["IM"]] = Vc
+    dest = (lambda a, b: _positions(a, b, Vw if forward else V))
+    for dt in (torch.float32, torch.float64):
+        args = (torch.tensor(bc, dtype=dt), torch.tensor(bf, dtype=torch.int32),
+                torch.tensor(fids, dtype=torch.int32))
+        clean = qd.query_walk_plain(qd.device_log(log, "cpu", dt), forward,
+                                    *(t.clone() for t in args))
+        got = qd.query_walk_plain(qd.device_log(nan, "cpu", dt), forward,
+                                  *(t.clone() for t in args))
+        assert np.isfinite(got[0].numpy()).all()
+        p = dest(got[0].numpy(), got[1].numpy())
+        _held(p, dest(*host[:2]))
+        if dt == torch.float64:
+            assert np.array_equal(got[1].numpy(), host[1]) and np.array_equal(got[2].numpy(), host[2])
+            assert np.abs(p - dest(*host[:2])).max() < 1e-12
+    hit = np.flatnonzero((got[2] != clean[2]).numpy() | (got[0] != clean[0]).any(1).numpy())
+    assert hit.size >= 10
+    stats = {}
+    qd.query_walk_plain(qd.device_log(nan, "cpu"), forward,
+                        *(t[hit].clone() for t in (args[0].float(), args[1], args[2])), stats=stats)
+    seen = stats["records"].numpy()
+    assert seen[r] and (seen[r + 1:] if forward else seen[:r]).any()  # on past r
+
+
+def test_query_steps_count_each_query(ico3):
+    _V, F, _Vc, _Fc, log = ico3
+    dlog = qd.device_log(log, "cpu")
+    bc, bf, fids = _rand_queries(F, 200, seed=9)
+    stats = {}
+    qd.query_walk_plain(dlog, True, torch.tensor(bc, dtype=torch.float32),
+                        torch.tensor(bf, dtype=torch.int32), torch.tensor(fids, dtype=torch.int32),
+                        stats=stats)
+    steps = stats["query_steps"]
+    assert steps.shape == (200,) and int(steps.sum()) == stats["steps"] and int(steps.min()) > 0
+
+
+def test_pack_walk_refuses_records_beyond_a_byte(ico3, monkeypatch):
+    """Local ids, nv and nf are bytes in a face entry: a larger record raises."""
+    monkeypatch.setattr(qd, "MAX_RECORD", 8)
+    with pytest.raises(ValueError, match="at most 8"):
+        qd.device_log(ico3[4], "cpu")
+
+
+def test_launch_shape_fits_the_shared_memory():
+    assert qd.launch_shape(18) == (64, 64 * 18 * 16)
+    threads, smem = qd.launch_shape(300)
+    assert threads == 32 and smem == 32 * 300 * 16 <= qd.MAX_SHARED
+    with pytest.raises(ValueError, match="shared memory"):
+        qd.launch_shape(qd.MAX_SHARED // (32 * 16) + 1)
+
+
+@pytest.mark.parametrize("forward", [True, False], ids=["f2c", "c2f"])
+def test_public_call_parts(ico3, forward):
+    """With ``parts`` a public call times each part and returns what it
+    returns without."""
+    _V, F, _Vc, Fc, log = ico3
+    dlog = qd.device_log(log, "cpu")
+    fn = qd.query_fine_to_coarse_device if forward else qd.query_coarse_to_fine_device
+    q = _rand_queries(F if forward else Fc, 500, seed=10)
+    parts = {}
+    got = fn(dlog, *q, parts=parts)
+    want = fn(dlog, *q)
+    assert set(parts) == {"validation", "h2d", "walk", "id_maps", "d2h"}
+    assert all(v >= 0 for v in parts.values())
+    for a, b, dt in zip(got, want, (np.float64, np.int64, np.int64)):
+        assert a.dtype == dt and np.array_equal(a, b)
