@@ -30,7 +30,18 @@ paths through their public entry points:
   host walk and walked back; examples 07-09 on bunny against
   ``data/golden``; K5 held bit for bit to its plain version on that log
   and on a copy with one record's parameterisations NaN (the no-win
-  path), both directions, f32 and f64; the public call at 1M by part;
+  path), both directions, f32 and f64, on a copy packed with every record
+  above MIXED_MAX_RECORD vertices or faces left unpacked, and on the drum
+  log (records of 303 vertices, beyond the packed walk's bytes), there
+  also against the host walk; the public call at 1M by part;
+- the bench (phase 19): ``python -m surface_multigrid_code_torch bench``
+  in a process of its own (the icosphere(9) V-cycle, the icosphere(7)
+  one, the bunny_15K balloon step, each with its check; on a machine
+  without its cache it builds the ico9 SSP hierarchy, ~2 min, and saves
+  it, so phase 20 loads it), and
+  ``entry()``'s V-cycle; then K1/K2 at the bench's icosphere(9) shapes,
+  held to the plain version and timed beside cuSPARSE (phase 20, a
+  process of its own);
 - persistence and the CLI: the ico7 and bunny_15K device hierarchies
   through ``save_device_hierarchy`` / ``load_device_hierarchy`` (bitwise,
   the same solve), the host hierarchy npz, and ``cli.main`` running
@@ -55,7 +66,8 @@ and read just after: it must have launched its kernels, and no plain
 version; then K1/K2 are held to their plain versions at the path's own
 shapes, and K5 to its plain version and the host walk. It times V-cycles, MCF and balloon steps and kernels against the
 plain versions (the MCF and balloon timings each in a child process,
-``--child mcf|balloon``, and phase 18 in one, ``--child balloon-large``;
+``--child mcf|balloon``, phase 18 in one, ``--child balloon-large``,
+and phase 20, ``--child ico9``);
 every profiler reading is held to CUDA-event times), and ends with
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": N}}
@@ -85,6 +97,9 @@ import time
 
 import numpy as np
 import torch
+
+# The bounds count as the package's bench counts (the H100's peaks).
+from surface_multigrid_code_torch.utils.bounds import bound_ms, spmv_bytes
 
 EPIS = (None, "axpby", "resid", "add", "resid_scaled")
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -197,14 +212,27 @@ QUERY_LIMITS = {("plain", torch.float32): (0.0, 1.0), ("plain", torch.float64): 
 # The no-win log's NaN record, counted from the end: late, so that ~0.1%
 # of random queries walk through it, with records after it to go on to.
 NO_WIN_BACK = 2000
+# Phase 13 also packs the log with records of more than MIXED_MAX_RECORD
+# vertices or faces left unpacked (about half of them), so that K5 steps
+# between packed and unpacked records all the time; and walks the drum
+# (``utils.synthetic.drum``, DRUM_N = 300, qslim to 600 faces: records of up
+# to 303 vertices, unpacked at the packed walk's own limit). Against the host walk
+# the drum's walks are held to DRUM_LIMITS[dtype] (the largest position
+# error, the drum's radius being 1; the least share of queries on the
+# host's ids), the bars of tests/test_torch_query.py: in float32 a few
+# walks take another face near ties on the drum's sliver fans; in float64
+# the ids are the host's, and the positions differ by the host's rounding
+# on those slivers (up to ~3e-12 on the CPU).
+MIXED_MAX_RECORD = 9
+DRUM_N = 300
+DRUM_FACES = 600
+DRUM_LIMITS = {torch.float32: (1e-2, 0.98), torch.float64: (1e-9, 1.0)}
+# Phases 19-20: the bench (its own checks decide its exit code); entry()'s
+# V-cycle against the same cycle on the plain versions, relative to max|z|.
+BENCH_TIMEOUT = 900
+ENTRY_TOL = 1e-4
 # Examples 08 / 09 as (tag, dec_type, seed, subdivisions), bunny to 500 faces
 EXAMPLES = (("ex08", 1, None, 2), ("ex09", 0, 10, 3))
-# Peaks of one H100 SXM (NVIDIA's data sheet) for the bounds: HBM3 bytes
-# per second, and float32 and float64 operations per second outside the
-# tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-F64_FLOPS_PER_S = 34e12
 
 
 def log(msg: str) -> None:
@@ -681,30 +709,6 @@ def host_csr(S):
                           S.indptr.cpu().numpy()), shape=S.shape)
 
 
-def bound_ms(nbytes, flops, f64=False):
-    """The least time the card could take: bytes over the HBM rate or
-    operations over the CUDA cores' f32 (or f64) peak, whichever is larger."""
-    peak = F64_FLOPS_PER_S if f64 else F32_FLOPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def spmv_bytes(H, C, epi, rows=None, itemsize=4):
-    """Bytes one fused SpMV must move, each input read once and each output
-    written once: the rows' index range (and row ids), their nonzeros'
-    indices and values, the x rows they gather, the epilogue operands and
-    y. With a row subset the update is in place: u is x, and its rows are
-    among the gathered ones (every row stores its diagonal)."""
-    sub = H if rows is None else H[rows]
-    n_out = sub.shape[0]
-    per = n_out * C * itemsize
-    nbytes = 4 * (H.shape[0] + 1) if rows is None else 12 * n_out
-    nbytes += sub.nnz * (4 + itemsize) + np.unique(sub.indices).size * C * itemsize + per
-    ops = {None: "", "axpby": "ubs", "resid": "b", "add": "u", "resid_scaled": "bs"}[epi]
-    nbytes += per * (("b" in ops) + ("u" in ops and rows is None)) + ("s" in ops) * n_out * itemsize
-    return nbytes, 2 * sub.nnz * C
-
-
 def spmv_cases(gs_hier, ogre_hier, dev):
     """The K1/K2 shapes of the static path: (label, operator, C, epi, rows, s)."""
     from surface_multigrid_code_torch.ops.sparse import csr_from_scipy
@@ -752,7 +756,7 @@ def shape_inputs(k, case, dev):
     return host_csr(S), u, kw, rows.cpu().numpy()
 
 
-def spmv_shapes(cases, dev, reps=20):
+def spmv_shapes(cases, dev, reps=20, phase="phase 6"):
     """Phase 6: K1/K2 at every shape of the static path. Per shape: device
     time (profiler) and per-call time (events) of the kernel and of one
     cuSPARSE call of the same SpMV (``torch.sparse_csr_tensor @ x``, on a
@@ -791,7 +795,7 @@ def spmv_shapes(cases, dev, reps=20):
             rec[f"{w}_ms"] = float(np.median(dev_ms[w]))
             rec[f"{w}_call_ms"] = float(np.median(call_ms[w]))
         out.append(rec)
-        log(f"phase 6: {kernel_name(C)} {label}: {rec['rows']} rows, {rec['nnz']} nnz "
+        log(f"{phase}: {kernel_name(C)} {label}: {rec['rows']} rows, {rec['nnz']} nnz "
             f"(max row {rec['max_row']}), lanes {rec['lanes']} of {rec['row_lanes']}; "
             f"bound {1e3 * bms:.3f} us "
             f"({nbytes} B); device kernel {[1e3 * t for t in dev_ms['kernel']]} us, "
@@ -1992,8 +1996,8 @@ def run_child(phase, state):
 
 def child(phase) -> int:
     """The body of ``--child phase``: phase 11 ("mcf"), phase 18
-    ("balloon-large") or phase 9 ("balloon", from the state on standard
-    input)."""
+    ("balloon-large"), phase 20 ("ico9") or phase 9 ("balloon", from the
+    state on standard input)."""
     state = pickle.load(sys.stdin.buffer)
     dev = torch.device("cuda", 0)
     from surface_multigrid_code_torch import _build, mg_precompute
@@ -2003,6 +2007,8 @@ def child(phase) -> int:
     _build.load_library()
     if phase == "mcf":
         result = mcf_timings(dev)
+    elif phase == "ico9":
+        result = ico9_kernels(dev)
     elif phase == "balloon-large":
         result = large_balloon(dev)
     else:
@@ -2011,6 +2017,91 @@ def child(phase) -> int:
                                  state["qdot"], dev)
     print(CHILD_RESULT + json.dumps(result), flush=True)
     return 0
+
+
+# ---------------------------------------------------------------- phases 19-20
+
+def bench_path():
+    """Phase 19: ``python -m surface_multigrid_code_torch bench`` (the
+    port's bench: the icosphere(9) headline, the icosphere(7) detail, the
+    bunny_15K balloon step) in a process of its own, as a user runs it. Its
+    JSON line must parse, every check in it must have passed, its
+    headline must be icosphere(9), and its run must have launched K1-K4
+    and no plain version (its own counts, from the start of its run to the
+    end). Returns (the line's object, the phase's wall in s)."""
+    from surface_multigrid_code_torch import bench
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "surface_multigrid_code_torch", "bench"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=BENCH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    sys.stderr.write(proc.stderr)
+    lines = proc.stdout.strip().splitlines()
+    if not lines:
+        raise RuntimeError(f"phase 19: the bench exited {proc.returncode} and printed no line")
+    log(f"phase 19: the bench's line ({wall:.1f} s, exit {proc.returncode}): {lines[-1]}")
+    rec = json.loads(lines[-1])
+    d = rec["detail"]
+    if proc.returncode != 0 or not rec["ok"] or not d["checks"] or not all(d["checks"].values()):
+        raise RuntimeError(f"phase 19: the bench failed (exit {proc.returncode}): "
+                           f"checks {d['checks']}")
+    n9 = 10 * 4 ** bench.HEADLINE_ORDER + 2
+    if d["headline"]["n"] != n9 or rec["value"] != d["headline"]["gnnz_per_s"]:
+        raise RuntimeError(f"phase 19: the headline is not icosphere(9) ({n9} vertices)")
+    if min(d["launches"].values()) <= 0 or any(d["plain_calls"].values()):
+        raise RuntimeError(f"phase 19: the bench launched {d['launches']}, plain calls "
+                           f"{d['plain_calls']}")
+    return rec, wall
+
+
+def entry_path(dev):
+    """Phase 19: ``entry.entry()``'s V-cycle on the card, counted, against
+    the same cycle on the plain versions within ENTRY_TOL of max|z|."""
+    from surface_multigrid_code_torch.entry import entry
+
+    reset_counts()
+    fn, args = entry()
+    z = fn(*args)
+    counts = read_counts("phase 19: entry()", ("spmv_fused",))
+    with plain_spmv():
+        zp = fn(*args)
+    err, scale = float((z - zp).abs().max()), float(zp.abs().max())
+    log(f"phase 19: entry() V-cycle on {args[1].shape[0]} rows: max|z - plain| {err:.3e}, "
+        f"max|z| {scale:.3e}")
+    if not bool(torch.isfinite(z).all()) or err > ENTRY_TOL * scale:
+        raise RuntimeError(f"phase 19: entry() differs from its plain cycle by {err:.3e}")
+    return {"launches": counts, "max_abs_err": err, "max_abs_z": scale}
+
+
+def ico9_kernels(dev):
+    """Phase 20 (a process of its own, see run_child): K1/K2 at the shapes
+    of the bench's icosphere(9) cycle, the first out of the 50 MB L2 (A_0
+    ~210 MB): A_0 (axpby, resid), the largest P (add) and Pᵀ, C = 1 and
+    3 (K2), f32 and f64, held to the plain version at TOL; then timed
+    beside cuSPARSE (spmv_shapes) at A_0 axpby (C = 1 and 3), P_1 add and
+    PT_1. The operators are the bench's, its hierarchy loaded from the
+    cache phase 19 saved. Returns {"errs", "shapes", "host_s"}."""
+    from surface_multigrid_code_torch import bench
+    from surface_multigrid_code_torch.ops.sparse import csr_from_scipy
+
+    As, Ps, _rhs, times = bench.ico_operators(bench.HEADLINE_ORDER)
+    log(f"phase 20: icosphere({bench.HEADLINE_ORDER}) operators on the host: {times}")
+    A0, P1 = As[0], Ps[0]
+    PT1 = P1.T.tocsr()
+    errs, rng = {}, np.random.default_rng(20)
+    n = check_spmv(A0, "ico9 A_0", dev, errs, rng, Cs=(1, 3), epis=("axpby", "resid"))
+    n += check_spmv(P1, "ico9 P_1", dev, errs, rng, Cs=(1, 3), epis=("add",))
+    n += check_spmv(PT1, "ico9 PT_1", dev, errs, rng, Cs=(1, 3), epis=(None,))
+    log(f"phase 20: K1/K2 {n} kernel-vs-plain cases agree at ico9 shapes; max abs err {errs}")
+    S = {name: csr_from_scipy(M, dev, torch.float32) for name, M in
+         (("A", A0), ("P", P1), ("PT", PT1))}
+    dinv = torch.as_tensor(1.0 / A0.diagonal(), dtype=torch.float32, device=dev)
+    cases = [("A_0 axpby, ico9", S["A"], 1, "axpby", None, dinv),
+             ("A_0 axpby C=3, ico9", S["A"], 3, "axpby", None, dinv),
+             ("P_1 add, ico9", S["P"], 1, "add", None, None),
+             ("PT_1, ico9", S["PT"], 1, None, None, None)]
+    return {"errs": errs, "shapes": spmv_shapes(cases, dev, phase="phase 20"), "host_s": times}
 
 
 # ---------------------------------------------------------------- phase 13
@@ -2207,12 +2298,20 @@ def check_query_kernel(V, F, Vc, Fc, qlog, dev):
     dests = {True: (lambda bc, bf: positions(bc, bf, Vw)),
              False: (lambda bc, bf: positions(bc, bf, V))}
     r = qlog["voff"].shape[0] - 1 - NO_WIN_BACK
-    logs = {"": qlog, " no-win": no_win_log(qlog, r)}
+    mixed = f" unpacked above {MIXED_MAX_RECORD}"
+    logs = {"": qlog, " no-win": no_win_log(qlog, r), mixed: qlog}
     worst, recs = 0.0, {}
     for dt in (torch.float32, torch.float64):
         clean = {}
         for tag, lg in logs.items():
-            dlog = device_log(lg, dev, dt)
+            with max_record(MIXED_MAX_RECORD if tag == mixed else None):
+                dlog = device_log(lg, dev, dt)
+            if tag == mixed:
+                unpacked = int((dlog.fwd.rec[:, 0] < 0).sum())
+                log(f"phase 13: {unpacked} of {dlog.n_collapse} records left unpacked "
+                    f"(MAX_RECORD {MIXED_MAX_RECORD})")
+                if not 0 < unpacked < dlog.n_collapse:
+                    raise RuntimeError("phase 13: the mixed log packs all or none of its records")
             for forward in (True, False):
                 inputs = walk_inputs(F, Fc, qlog, QUERY_CHECK_N, forward, dev, dt)
                 k = walked(query_walk, dlog, forward, inputs)
@@ -2229,7 +2328,10 @@ def check_query_kernel(V, F, Vc, Fc, qlog, dev):
                         f"queries: {rec} (limits {limit})")
                     if rec["max_pos_err"] > limit[0] or rec["same_ids"] < limit[1]:
                         raise RuntimeError(f"K5 {label} disagrees with the {against} walk: {rec}")
-                if tag:
+                if tag == mixed:
+                    if not all(bool(torch.equal(a, b)) for a, b in zip(k, clean[forward])):
+                        raise RuntimeError(f"K5 {label}: not bit for bit the packed log's walk")
+                elif tag:
                     moved = [(a != b).reshape(a.shape[0], -1).any(1)
                              for a, b in zip(k, clean[forward])]
                     checks["through_record"] = int((moved[0] | moved[1] | moved[2]).sum())
@@ -2241,6 +2343,66 @@ def check_query_kernel(V, F, Vc, Fc, qlog, dev):
                     clean[forward] = k
                 worst = max(worst, checks["plain"]["max_bc_diff"])
                 recs[label] = checks
+    return worst, recs
+
+
+@contextlib.contextmanager
+def max_record(n):
+    """Pack with ``query.device.MAX_RECORD`` = n inside (n None: as it is)."""
+    from surface_multigrid_code_torch.query import device as qd
+
+    saved = qd.MAX_RECORD
+    qd.MAX_RECORD = saved if n is None else n
+    try:
+        yield
+    finally:
+        qd.MAX_RECORD = saved
+
+
+def check_drum(dev):
+    """Phase 13: the drum log (records beyond a byte, unpacked): K5 bit for
+    bit its plain version, f32 and f64, both directions, at QUERY_CHECK_N
+    queries, and against the host walk within DRUM_LIMITS. Returns (largest |BC difference| from the plain
+    version, the records)."""
+    from surface_multigrid_code_torch import SSP_decimate
+    from surface_multigrid_code_torch.query.device import device_log, query_walk, query_walk_plain
+    from surface_multigrid_code_torch.ssp import _native
+    from surface_multigrid_code_torch.utils.synthetic import drum
+
+    V, F = drum(DRUM_N)
+    ok, Vc, Fc, _IMF, _IM, dlg = SSP_decimate(V, F, DRUM_FACES, 0)
+    largest = int(np.diff(dlg["voff"]).max())
+    if not ok or largest <= 255:
+        raise RuntimeError(f"phase 13: the drum's largest record has {largest} vertices")
+    Vw = np.array(V, dtype=np.float64)
+    Vw[dlg["IM"]] = Vc
+    dests = {True: (lambda bc, bf: positions(bc, bf, Vw)),
+             False: (lambda bc, bf: positions(bc, bf, V))}
+    worst, recs = 0.0, {}
+    for dt in (torch.float32, torch.float64):
+        dlog = device_log(dlg, dev, dt)
+        for forward in (True, False):
+            label = f"drum {'f2c' if forward else 'c2f'} {str(dt)[6:]}"
+            unpacked = torch.nonzero(dlog.packed(forward).rec[:, 0] < 0).flatten().tolist()
+            inputs = walk_inputs(F, Fc, dlg, QUERY_CHECK_N, forward, dev, dt)
+            k = walked(query_walk, dlog, forward, inputs)
+            plain = walked(query_walk_plain, dlog, forward, inputs)
+            host = _native.query_walk(dlg, forward, *(t.cpu().numpy() for t in inputs))
+            rec = {"unpacked": unpacked,
+                   "plain": walk_compare(plain, k, dests[forward]),
+                   "host": walk_compare(tuple(torch.as_tensor(h) for h in host), k,
+                                        dests[forward])}
+            log(f"phase 13: K5 {label} ({largest}-vertex records, unpacked {unpacked}), "
+                f"{QUERY_CHECK_N} queries: {rec}")
+            if not all(bool(torch.equal(a, b)) for a, b in zip(k, plain)):
+                raise RuntimeError(f"K5 {label}: not bit for bit the plain walk")
+            pos, same = DRUM_LIMITS[dt]
+            if rec["host"]["same_ids"] < same or rec["host"]["max_pos_err"] > pos:
+                raise RuntimeError(f"K5 {label} disagrees with the host walk: {rec['host']}")
+            if not unpacked:
+                raise RuntimeError(f"phase 13: the {label} log packs every record")
+            worst = max(worst, rec["plain"]["max_bc_diff"])
+            recs[label] = rec
     return worst, recs
 
 
@@ -3590,6 +3752,8 @@ def main() -> int:
     queries, examples = query_path(Vq, Fq, Vqc, Fqc, qlog, dev)
     launches["query_walk"] = read_counts("phase 13", ("query_walk",))["query_walk"]
     errs["query_walk"], walk_checks = check_query_kernel(Vq, Fq, Vqc, Fqc, qlog, dev)
+    drum_err, walk_checks["drum"] = check_drum(dev)
+    errs["query_walk"] = max(errs["query_walk"], drum_err)
     walk_t = query_timings(Fq, Fqc, qlog, queries, dev)
     walk_t["public_call"] = public_call_parts(Fq, qlog, dev)
     del qlog
@@ -3618,6 +3782,19 @@ def main() -> int:
         launches[name] += p14[name]
     t14 = time.perf_counter() - t14
     log(f"phases 13-14: {t13:.1f} s, {t14:.1f} s")
+
+    # phase 19: the bench, as a user runs it, in a process of its own (its
+    # launches are its own counts; it builds and caches the ico9
+    # hierarchy), and entry()'s V-cycle, counted; phase 20:
+    # K1/K2 at the bench's ico9 shapes, in a process of its own
+    bench_rec, bench_wall = bench_path()
+    for name, n in bench_rec["detail"]["launches"].items():
+        launches[name] += n
+    entry_rec = entry_path(dev)
+    launches["spmv_fused"] += entry_rec["launches"]["spmv_fused"]
+    ico9 = run_child("ico9", {})
+    for name, e in ico9["errs"].items():
+        errs[name] = max(errs[name], e)
 
     # phase 15: the sharded paths, on ranks that share the card; each rank
     # sets its counts to 0 just before its path and reads them just after
@@ -3654,6 +3831,9 @@ def main() -> int:
                                 "examples": examples, "ptxas": walk_regs},
                     "mesh": f"icosphere({QUERY_DEPTH}) to F/64, dec_type 1", "dtype": "float32"}))
     log(json.dumps({"persistence": persisted, "cli": clis}))
+    log(json.dumps({"bench": bench_rec, "bench_wall_s": bench_wall, "entry": entry_rec}))
+    log(json.dumps({"spmv_shapes_ico9": ico9["shapes"], "mesh": "icosphere(9), induced-RCM",
+                    "dtype": "float32", "host_s": ico9["host_s"]}))
     log(json.dumps({"sharded": sharded, "dtype": "float32 (the balloon direction and step: "
                     "float64 and float32)", "launches": sh_launches}))
     log(json.dumps({"well": well, "dtype": "float32 (the balloon direction and step: "

@@ -67,11 +67,13 @@ EPI_CODE = {None: 0, "axpby": 1, "resid": 2, "add": 3, "resid_scaled": 4}
 
 def signatures(kernel, lanes):
     """{entry point: argtypes} of a version of the kernel's source; ``lanes``:
-    whether its SpMV entry points take a lanes argument (K5: whether its
-    entry points take the packed blocks)."""
+    whether its SpMV entry points take a lanes argument (K5: 0 for the CSR
+    walk, 1 for the packed blocks, 2 for the packed blocks and the CSR
+    parameterisations of unpacked records)."""
     ln = [_I] * lanes
     if kernel == "query":
-        walk = [_P] * 9 + [_I] * 5 + [_P] if lanes else [_P] * 12 + [_I] * 3 + [_P]
+        walk = {0: [_P] * 12 + [_I] * 3 + [_P], 1: [_P] * 9 + [_I] * 5 + [_P],
+                2: [_P] * 12 + [_I] * 6 + [_P]}[lanes]
         return {"smg_query_walk_f32": walk, "smg_query_walk_f64": walk}
     if kernel == "spmv":
         return {"smg_spmv_fused_f32": [_P] * 8 + [_D, _P, _I] + ln + [_I, _P],
@@ -106,7 +108,10 @@ def build(kernel, versions):
         _, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {versions[name]}:\n{err}")
-        lanes = VARIANT[kernel] in Path(versions[name]).read_text()
+        text = Path(versions[name]).read_text()
+        lanes = VARIANT[kernel] in text
+        if kernel == "query":
+            lanes += "const void* uv_src" in text
         lib = ctypes.CDLL(str(so))
         for fn, argtypes in signatures(kernel, lanes).items():
             getattr(lib, fn).argtypes = argtypes
@@ -170,7 +175,13 @@ def query_caller(lib, packed, dlog, work):
     BC, BF, FIdx = work
     fn = lib.smg_query_walk_f32 if BC.dtype == torch.float32 else lib.smg_query_walk_f64
     p = (lambda t: t.data_ptr())
-    if packed:
+    if packed == 2:
+        threads, smem = launch_shape(dlog.fwd.chunks)
+        args = [p(dlog.subset), p(dlog.fidx_post), p(dlog.dim_off), p(dlog.dim_dat),
+                p(dlog.fwd.rec), p(dlog.fwd.pack), p(dlog.uv_pre), p(dlog.uv_post),
+                p(dlog.fuv_post), p(BC), p(BF), p(FIdx), BC.shape[0], dlog.n_collapse,
+                dlog.subset.shape[0], 1, threads, smem]
+    elif packed:
         threads, smem = launch_shape(dlog.fwd.chunks)
         args = [p(dlog.subset), p(dlog.fidx_post), p(dlog.dim_off), p(dlog.dim_dat),
                 p(dlog.fwd.rec), p(dlog.fwd.pack), p(BC), p(BF), p(FIdx), BC.shape[0],

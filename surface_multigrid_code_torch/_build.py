@@ -42,9 +42,9 @@ _K2_ARGS = [_p, _p, _p, _p, _p, _p, _p, _p, _d, _p, _i, _i, _i, _i, _p]
 _K3_ARGS = [_p, _p, _p, _p, _p, _p, _p, _p, _d, _i, _i, _i, _p]
 # X, Y, m, d, schedule (host double [2 * steps]), steps, stream
 _K4_ARGS = [_p, _p, _i, _i, _p, _i, _p]
-# subset, fidx, dim_off, dim_dat, rec, pack, BC, BF, FIdx, nq, n_collapse, forward,
-# threads, shared bytes, stream
-_K5_ARGS = [_p] * 9 + [_i] * 5 + [_p]
+# subset, fidx, dim_off, dim_dat, rec, pack, uv_src, uv_dst, fuv, BC, BF, FIdx, nq,
+# n_collapse, nvert, forward, threads, shared bytes, stream
+_K5_ARGS = [_p] * 12 + [_i] * 6 + [_p]
 SIGNATURES = {
     "smg_spmv_fused_f32": _K1_ARGS,
     "smg_spmv_fused_f64": _K1_ARGS,

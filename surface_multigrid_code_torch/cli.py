@@ -8,14 +8,17 @@ with its commands, arguments, defaults, printed lines and output files:
   solve      Poisson solve (A = -L, B = M@1) with the longest boundary loop pinned
   mcf        mean-curvature flow (device-resident stepper)
   remesh     subdivision remeshing (decimate -> upsample -> map back)
+  bench      the port's benchmark (``bench.py``): one JSON line
 
 Every command takes ``--device``, the card (``cuda``) unless ``--device
 cpu`` is given; without a card the default raises, there is no fallback.
 ``solve`` and ``mcf`` run on that device, in float32 on the card and
 float64 on the CPU (the JAX package picks by its x64 flag). ``decimate``,
 ``hierarchy`` and ``remesh`` are host work (the native SSP engine and the
-host OpenMP walk, as in the JAX package). The JAX CLI's ``bench`` command
-runs the repository's TPU benchmark and has no counterpart here.
+host OpenMP walk, as in the JAX package). ``bench`` is the counterpart of
+the JAX CLI's, which runs the repository's ``bench.py``: on the card the
+icosphere(9) headline, the icosphere(7) detail and the balloon step; with
+``--device cpu`` the small float64 case (``bench.py``'s docstring).
 """
 
 from __future__ import annotations
@@ -137,6 +140,15 @@ def cmd_remesh(args):
         print(f"wrote {out}")
 
 
+def cmd_bench(args):
+    from surface_multigrid_code_torch import bench
+
+    cache = [] if args.cache_dir is None else ["--cache-dir", args.cache_dir]
+    rc = bench.main(["--device", str(args.device), *cache])
+    if rc:
+        sys.exit(rc)
+
+
 def main(argv=None):
     from surface_multigrid_code_torch.utils.device import resolve_device
 
@@ -186,6 +198,12 @@ def main(argv=None):
     p.add_argument("-s", "--seed", type=int, default=None)
     p.add_argument("-o", "--output-prefix", default="remesh")
     p.set_defaults(fn=cmd_remesh)
+
+    p = sub.add_parser("bench", help="the port's benchmark (one JSON line)", parents=[common])
+    p.add_argument("--cache-dir", default=None,
+                   help="where the SSP hierarchies are cached (default: the package's "
+                        "build directory; '' builds them every run)")
+    p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
     args.device = resolve_device(args.device)

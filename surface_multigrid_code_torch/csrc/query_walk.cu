@@ -58,6 +58,16 @@
 // face. A thread's state (3 barycentrics, 3 local ids, the record and the
 // last commit) stays in registers; the results are written once.
 //
+// Records too large for a block (more than 255 vertices or destination
+// faces, whose local ids would not fit the face entries' bytes, or more
+// chunks than 32 threads' slices can stage in shared memory) are not
+// packed: rec holds block -1, and face entries leading to them hold no
+// block, sizes or local ids. A step in such a record takes the CSR route
+// of the first step: the global ids of the carried corners, the host's
+// lower_bound in the subset, the source pairs, faces and destination pairs
+// read from the CSR arrays in global memory, the same arithmetic; after it
+// the walk searches dim_dat for the next record, as after a no-win.
+//
 // What bounds it now (H100, PERF.md): the face loop, ~90 instructions a
 // face (two IEEE divisions among them) in a dependent chain: at 10K
 // queries (~2 warps an SM) a step is that chain's latency, ~4,400 cycles.
@@ -107,8 +117,12 @@ struct Args {
   const int* fidx;      // [foff[n]] destination faces, working-mesh face ids (CSR)
   const int* dim_off;   // [nF_working + 1] face -> first dim_dat entry
   const int* dim_dat;   // ascending record ids whose pre-patch holds the face
-  const int4* rec;      // [n_collapse] {block, nv | nf << 16, voff, foff}
+  const int4* rec;      // [n_collapse] {block (-1: not packed), nv | nf << 16, voff, foff}
   const int4* pack;     // the direction's record blocks, 16-byte chunks
+  const T* uv_src;      // [nvert, 2] source parameterisation (CSR, from voff)
+  const T* uv_dst;      // [nvert, 2] destination parameterisation
+  const int* fuv;       // [foff[n], 3] destination faces in local ids (CSR)
+  int nvert;            // voff[n]
   T* BC;                // [nq, 3] in place
   int* BF;              // [nq, 3] in place
   int* FIdx;            // [nq] in place
@@ -187,6 +201,57 @@ __device__ void locate(const Args<T>& a, const int4 r, const int* bf, int* lid) 
   }
 }
 
+// q = sum_c bc[c] * p[c], in the host walk's order.
+template <typename T, typename P>
+__device__ __forceinline__ void source_point(const T* bc, const P p0, const P p1, const P p2,
+                                             T& qx, T& qy) {
+  qx = T(0);
+  qy = T(0);
+  qx = rn_add(qx, rn_mul(bc[0], p0.x));
+  qy = rn_add(qy, rn_mul(bc[0], p0.y));
+  qx = rn_add(qx, rn_mul(bc[1], p1.x));
+  qy = rn_add(qy, rn_mul(bc[1], p1.y));
+  qx = rn_add(qx, rn_mul(bc[2], p2.x));
+  qy = rn_add(qy, rn_mul(bc[2], p2.y));
+}
+
+// The barycentrics (u, v, w) of q in destination face k with corners A, B,
+// C; face k becomes the best if its minimum beats bestmind.
+template <typename T, typename P>
+__device__ __forceinline__ void test_face(const P A, const P B, const P C, const T qx, const T qy,
+                                          const int k, T& bestmind, int& best, T* W) {
+  const T v0x = rn_sub(B.x, A.x), v0y = rn_sub(B.y, A.y);
+  const T v1x = rn_sub(C.x, A.x), v1y = rn_sub(C.y, A.y);
+  const T v2x = rn_sub(qx, A.x), v2y = rn_sub(qy, A.y);
+  const T d00 = rn_add(rn_mul(v0x, v0x), rn_mul(v0y, v0y));
+  const T d01 = rn_add(rn_mul(v0x, v1x), rn_mul(v0y, v1y));
+  const T d11 = rn_add(rn_mul(v1x, v1x), rn_mul(v1y, v1y));
+  const T d20 = rn_add(rn_mul(v2x, v0x), rn_mul(v2y, v0y));
+  const T d21 = rn_add(rn_mul(v2x, v1x), rn_mul(v2y, v1y));
+  const T denom = rn_sub(rn_mul(d00, d11), rn_mul(d01, d01));
+  const T v = rn_div(rn_sub(rn_mul(d11, d20), rn_mul(d01, d21)), denom);
+  const T w = rn_div(rn_sub(rn_mul(d00, d21), rn_mul(d01, d20)), denom);
+  const T u = rn_sub(rn_sub(T(1), v), w);
+  const T mind = -host_min(u, host_min(v, w));
+  if (mind < bestmind) {
+    bestmind = mind;
+    best = k;
+    W[0] = u;
+    W[1] = v;
+    W[2] = w;
+  }
+}
+
+// The query's global vertex ids and face id from the last commit: packed
+// record cd, its destination face ck, whose local ids are the bytes of cz.
+template <typename T>
+__device__ __forceinline__ void resolve(const Args<T>& a, int cd, int ck, int cz, int* bf,
+                                        int& f) {
+  const int4 r = __ldg(a.rec + cd);
+  for (int c = 0; c < 3; ++c) bf[c] = __ldg(a.subset + r.z + byte_of(cz, c));
+  f = __ldg(a.fidx + r.w + ck);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads) query_walk_kernel(const Args<T> a) {
   using P = typename Vec2<T>::type;
@@ -196,108 +261,105 @@ __global__ void __launch_bounds__(kMaxThreads) query_walk_kernel(const Args<T> a
   if (qi >= a.nq) return;
   int4* slice = smem + threadIdx.x;  // chunk j of this thread at slice[j * stride]
   const int stride = blockDim.x;
+  const P* uv_src = reinterpret_cast<const P*>(a.uv_src);
+  const P* uv_dst = reinterpret_cast<const P*>(a.uv_dst);
 
   int bf[3] = {a.BF[3 * qi], a.BF[3 * qi + 1], a.BF[3 * qi + 2]};
   int f = a.FIdx[qi];
   int d = next_record(a, f, a.forward ? -1 : a.n_collapse);
   if (d < 0) return;  // no record holds the face: the query stays as it is
   T bc[3] = {a.BC[3 * qi], a.BC[3 * qi + 1], a.BC[3 * qi + 2]};
-  int4 r = __ldg(a.rec + d);
+  int4 r = __ldg(a.rec + d);  // record d's row; read again only on the CSR route
   int lid[3];
   locate(a, r, bf, lid);
   int blk = r.x, nv = r.y & 0xffff, nf = r.y >> 16;
-  // The last commit: its record (-1: bf and f are current), face and local ids.
+  // The last commit in a packed record: its record (-1: bf and f are
+  // current), face and local ids.
   int cd = -1, ck = 0, cz = 0;
   while (true) {
-    const int4* block = a.pack + blk;
-    const int nus = (nv + kPer) / kPer;      // chunks of the nv + 1 source pairs
-    const int nud = (nv + kPer - 1) / kPer;  // chunks of the nv destination pairs
-    for (int j = 0; j < nud + nf; ++j) cp_async16(slice + j * stride, block + nus + j);
-    const P* src = reinterpret_cast<const P*>(block);
-    const P p0 = __ldg(src + lid[0]), p1 = __ldg(src + lid[1]), p2 = __ldg(src + lid[2]);
-    T qx = T(0), qy = T(0);
-    qx = rn_add(qx, rn_mul(bc[0], p0.x));
-    qy = rn_add(qy, rn_mul(bc[0], p0.y));
-    qx = rn_add(qx, rn_mul(bc[1], p1.x));
-    qy = rn_add(qy, rn_mul(bc[1], p1.y));
-    qx = rn_add(qx, rn_mul(bc[2], p2.x));
-    qy = rn_add(qy, rn_mul(bc[2], p2.y));
-    cp_async_wait_all();
-
     T bestmind = T(1);
     int best = -1;
-    T B0 = T(0), B1 = T(0), B2 = T(0);
-    for (int k = 0; k < nf; ++k) {
-      const int z = slice[(nud + k) * stride].z;
-      const int ia = byte_of(z, 0), ib = byte_of(z, 1), ic = byte_of(z, 2);
-      const P A = reinterpret_cast<const P*>(slice + (ia / kPer) * stride)[ia % kPer];
-      const P B = reinterpret_cast<const P*>(slice + (ib / kPer) * stride)[ib % kPer];
-      const P C = reinterpret_cast<const P*>(slice + (ic / kPer) * stride)[ic % kPer];
-      const T v0x = rn_sub(B.x, A.x), v0y = rn_sub(B.y, A.y);
-      const T v1x = rn_sub(C.x, A.x), v1y = rn_sub(C.y, A.y);
-      const T v2x = rn_sub(qx, A.x), v2y = rn_sub(qy, A.y);
-      const T d00 = rn_add(rn_mul(v0x, v0x), rn_mul(v0y, v0y));
-      const T d01 = rn_add(rn_mul(v0x, v1x), rn_mul(v0y, v1y));
-      const T d11 = rn_add(rn_mul(v1x, v1x), rn_mul(v1y, v1y));
-      const T d20 = rn_add(rn_mul(v2x, v0x), rn_mul(v2y, v0y));
-      const T d21 = rn_add(rn_mul(v2x, v1x), rn_mul(v2y, v1y));
-      const T denom = rn_sub(rn_mul(d00, d11), rn_mul(d01, d01));
-      const T v = rn_div(rn_sub(rn_mul(d11, d20), rn_mul(d01, d21)), denom);
-      const T w = rn_div(rn_sub(rn_mul(d00, d21), rn_mul(d01, d20)), denom);
-      const T u = rn_sub(rn_sub(T(1), v), w);
-      const T mind = -host_min(u, host_min(v, w));
-      if (mind < bestmind) {
-        bestmind = mind;
-        best = k;
-        B0 = u;
-        B1 = v;
-        B2 = w;
+    T W[3] = {T(0), T(0), T(0)};
+    const int nud = (nv + kPer - 1) / kPer;  // chunks of the nv destination pairs
+    if (blk >= 0) {
+      const int4* block = a.pack + blk;
+      const int nus = (nv + kPer) / kPer;  // chunks of the nv + 1 source pairs
+      for (int j = 0; j < nud + nf; ++j) cp_async16(slice + j * stride, block + nus + j);
+      const P* src = reinterpret_cast<const P*>(block);
+      T qx, qy;
+      source_point(bc, __ldg(src + lid[0]), __ldg(src + lid[1]), __ldg(src + lid[2]), qx, qy);
+      cp_async_wait_all();
+      for (int k = 0; k < nf; ++k) {
+        const int z = slice[(nud + k) * stride].z;
+        const int ia = byte_of(z, 0), ib = byte_of(z, 1), ic = byte_of(z, 2);
+        test_face(reinterpret_cast<const P*>(slice + (ia / kPer) * stride)[ia % kPer],
+                  reinterpret_cast<const P*>(slice + (ib / kPer) * stride)[ib % kPer],
+                  reinterpret_cast<const P*>(slice + (ic / kPer) * stride)[ic % kPer], qx, qy,
+                  k, bestmind, best, W);
+      }
+    } else {
+      // Not packed: the CSR arrays (past the last record the host reads (0, 0)).
+      P p[3];
+      for (int c = 0; c < 3; ++c) {
+        const int i = r.z + lid[c];
+        p[c] = i < a.nvert ? __ldg(uv_src + i) : P{T(0), T(0)};
+      }
+      T qx, qy;
+      source_point(bc, p[0], p[1], p[2], qx, qy);
+      for (int k = 0; k < nf; ++k) {
+        const int* tri = a.fuv + 3 * (r.w + k);
+        test_face(__ldg(uv_dst + r.z + __ldg(tri)), __ldg(uv_dst + r.z + __ldg(tri + 1)),
+                  __ldg(uv_dst + r.z + __ldg(tri + 2)), qx, qy, k, bestmind, best, W);
       }
     }
     if (best >= 0) {
-      B0 = B0 > T(0) ? B0 : T(0);
-      B1 = B1 > T(0) ? B1 : T(0);
-      B2 = B2 > T(0) ? B2 : T(0);
-      const T s = rn_add(rn_add(B0, B1), B2);
-      bc[0] = rn_div(B0, s);
-      bc[1] = rn_div(B1, s);
-      bc[2] = rn_div(B2, s);
-      // {next_rec, its block, fuv bytes | next nv << 24, next_lid bytes | next nf << 24}
-      const int4 e = slice[(nud + best) * stride];
-      cd = d;
-      ck = best;
-      cz = e.z;
-      if (e.x < 0) break;
-      d = e.x;
-      blk = e.y;
-      nv = byte_of(e.z, 3);
-      nf = byte_of(e.w, 3);
-      lid[0] = byte_of(e.w, 0);
-      lid[1] = byte_of(e.w, 1);
-      lid[2] = byte_of(e.w, 2);
-      continue;
+      for (int c = 0; c < 3; ++c) W[c] = W[c] > T(0) ? W[c] : T(0);
+      const T s = rn_add(rn_add(W[0], W[1]), W[2]);
+      for (int c = 0; c < 3; ++c) bc[c] = rn_div(W[c], s);
+      if (blk >= 0) {
+        // {next_rec, its block, fuv bytes | next nv << 24, next_lid bytes | next nf << 24}
+        const int4 e = slice[(nud + best) * stride];
+        cd = d;
+        ck = best;
+        cz = e.z;
+        if (e.x < 0) break;
+        d = e.x;
+        if (e.y >= 0) {
+          blk = e.y;
+          nv = byte_of(e.z, 3);
+          nf = byte_of(e.w, 3);
+          lid[0] = byte_of(e.w, 0);
+          lid[1] = byte_of(e.w, 1);
+          lid[2] = byte_of(e.w, 2);
+          continue;
+        }
+        // The next record is not packed: the host's search for its local ids.
+        resolve(a, cd, ck, cz, bf, f);
+        cd = -1;
+      } else {
+        const int* tri = a.fuv + 3 * (r.w + best);
+        for (int c = 0; c < 3; ++c) bf[c] = __ldg(a.subset + r.z + __ldg(tri + c));
+        f = __ldg(a.fidx + r.w + best);
+        d = next_record(a, f, d);
+        if (d < 0) break;
+      }
+    } else {
+      // No face won: the point stays, and the walk goes on from the same
+      // face with the host's search.
+      if (cd >= 0) {
+        resolve(a, cd, ck, cz, bf, f);
+        cd = -1;
+      }
+      d = next_record(a, f, d);
+      if (d < 0) break;
     }
-    // No face won: the point stays, and the walk goes on from the same face
-    // with the host's search.
-    if (cd >= 0) {
-      r = __ldg(a.rec + cd);
-      for (int c = 0; c < 3; ++c) bf[c] = __ldg(a.subset + r.z + byte_of(cz, c));
-      f = __ldg(a.fidx + r.w + ck);
-      cd = -1;
-    }
-    d = next_record(a, f, d);
-    if (d < 0) break;
     r = __ldg(a.rec + d);
     locate(a, r, bf, lid);
     blk = r.x;
     nv = r.y & 0xffff;
     nf = r.y >> 16;
   }
-  if (cd >= 0) {
-    r = __ldg(a.rec + cd);
-    for (int c = 0; c < 3; ++c) bf[c] = __ldg(a.subset + r.z + byte_of(cz, c));
-    f = __ldg(a.fidx + r.w + ck);
-  }
+  if (cd >= 0) resolve(a, cd, ck, cz, bf, f);
   a.BC[3 * qi] = bc[0];
   a.BC[3 * qi + 1] = bc[1];
   a.BC[3 * qi + 2] = bc[2];
@@ -329,18 +391,24 @@ int query_walk(const Args<T>& a, int threads, int smem, void* stream_ptr) {
 // The arrays of one direction (see Args); forward is 1 for fine -> coarse.
 extern "C" int smg_query_walk_f32(const int* subset, const int* fidx, const int* dim_off,
                                   const int* dim_dat, const void* rec, const void* pack,
+                                  const void* uv_src, const void* uv_dst, const int* fuv,
                                   float* BC, int* BF, int* FIdx, int nq, int n_collapse,
-                                  int forward, int threads, int smem, void* stream) {
+                                  int nvert, int forward, int threads, int smem, void* stream) {
   const Args<float> a{subset, fidx, dim_off, dim_dat, static_cast<const int4*>(rec),
-                      static_cast<const int4*>(pack), BC, BF, FIdx, nq, n_collapse, forward};
+                      static_cast<const int4*>(pack), static_cast<const float*>(uv_src),
+                      static_cast<const float*>(uv_dst), fuv, nvert, BC, BF, FIdx, nq,
+                      n_collapse, forward};
   return query_walk<float>(a, threads, smem, stream);
 }
 
 extern "C" int smg_query_walk_f64(const int* subset, const int* fidx, const int* dim_off,
                                   const int* dim_dat, const void* rec, const void* pack,
+                                  const void* uv_src, const void* uv_dst, const int* fuv,
                                   double* BC, int* BF, int* FIdx, int nq, int n_collapse,
-                                  int forward, int threads, int smem, void* stream) {
+                                  int nvert, int forward, int threads, int smem, void* stream) {
   const Args<double> a{subset, fidx, dim_off, dim_dat, static_cast<const int4*>(rec),
-                       static_cast<const int4*>(pack), BC, BF, FIdx, nq, n_collapse, forward};
+                       static_cast<const int4*>(pack), static_cast<const double*>(uv_src),
+                       static_cast<const double*>(uv_dst), fuv, nvert, BC, BF, FIdx, nq,
+                       n_collapse, forward};
   return query_walk<double>(a, threads, smem, stream);
 }

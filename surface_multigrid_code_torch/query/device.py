@@ -42,8 +42,10 @@ _CSR = ("voff", "subset", "uv_pre", "uv_post", "foff_pre", "fuv_pre", "fidx_pre"
 # K5's block: at most this many threads, and the shared memory one may use.
 MAX_THREADS = 64
 MAX_SHARED = 227 * 1024
-# Local ids, nv and nf are bytes in a packed face entry.
+# Local ids, nv and nf are bytes in a packed face entry; a larger record is
+# not packed. Nor is one of more chunks than a warp's slices can stage.
 MAX_RECORD = 255
+MAX_CHUNKS = MAX_SHARED // (32 * 16)
 
 
 @dataclass
@@ -59,7 +61,11 @@ class PackedWalk:
     as three bytes | next nv << 24, next_lid as three bytes | next nf <<
     24} (``walk_tables``; -1 and zeros where the walk ends). The floats are
     stored as their bits. ``rec`` ([n, 4] int32): {block, nv | nf << 16,
-    voff[d], foff[d]} of the direction. ``chunks``: the largest record's
+    voff[d], foff[d]} of the direction. A record of more than
+    ``MAX_RECORD`` vertices or destination faces, or of more than
+    ``MAX_CHUNKS`` chunks to stage, has no block: its block is -1, and a
+    face entry leading to it holds next_rec, -1 and zeros (K5 walks it
+    through the CSR arrays). ``chunks``: the largest packed record's
     destination parameterisation and face chunks, what a thread stages in
     shared memory."""
 
@@ -226,20 +232,20 @@ def _bytes4(b0, b1, b2, b3) -> torch.Tensor:
 
 def pack_walk(dlog: DeviceCollapseLog, forward: bool) -> PackedWalk:
     """The ``PackedWalk`` of one direction, built with plain PyTorch on the
-    log's device. Raises if a record holds more than ``MAX_RECORD``
-    vertices or destination faces (a packed face entry keeps them in bytes)."""
+    log's device. Records of more than ``MAX_RECORD`` vertices or
+    destination faces (a packed face entry keeps them in bytes) or of more
+    than ``MAX_CHUNKS`` chunks to stage are left unpacked."""
     uv_src, uv_dst, foff, fuv, fidx = dlog.side(forward)
     dev, n = dlog.device, dlog.n_collapse
     voff, foff = dlog.voff.long(), foff.long()
     nv, nf = voff[1:] - voff[:-1], foff[1:] - foff[:-1]
-    largest = int(torch.maximum(nv.max(), nf.max())) if n else 0
-    if largest > MAX_RECORD:
-        raise ValueError(f"a record of {largest} vertices or faces: the packed walk takes "
-                         f"at most {MAX_RECORD}")
+    if n and int(torch.maximum(nv.max(), nf.max())) > 0xFFFF:
+        raise ValueError("rec keeps a record's vertex and face counts in 16 bits each")
     per = 16 // (2 * uv_src.element_size())             # (u, v) pairs per chunk
     nus, nud = (nv + per) // per, (nv + per - 1) // per  # chunks of nv + 1 and nv pairs
-    size = nus + nud + nf
-    blk = torch.cumsum(size, 0) - size
+    fits = (nv <= MAX_RECORD) & (nf <= MAX_RECORD) & (nud + nf <= MAX_CHUNKS)
+    size = torch.where(fits, nus + nud + nf, 0)
+    blk = torch.where(fits, torch.cumsum(size, 0) - size, -1)
     total = int(size.sum()) if n else 0
     if total > _I32.max:
         raise ValueError("the packed walk indexes its chunks with int32")
@@ -249,28 +255,31 @@ def pack_walk(dlog: DeviceCollapseLog, forward: bool) -> PackedWalk:
     nvert = dlog.subset.shape[0]
     w = 2 * uv_src.element_size() // 4                   # 32-bit words per pair
     r = row_ids(dlog.voff, nvert)
-    at = 4 * blk[r] + w * (torch.arange(nvert, device=dev) - voff[r])
+    v = fits[r]                                          # vertices of packed records
+    r = r[v]
+    at = 4 * blk[r] + w * (torch.arange(nvert, device=dev)[v] - voff[r])
     cols = torch.arange(w, device=dev)
     bits = (lambda uv: uv.contiguous().view(torch.int32).reshape(-1, w))
     src = torch.cat([uv_src, uv_src.new_zeros((1, 2))])
-    flat[at[:, None] + cols] = bits(uv_src)
-    flat[(4 * blk + w * nv)[:, None] + cols] = bits(src[voff[1:]])
-    flat[(at + 4 * nus[r])[:, None] + cols] = bits(uv_dst)
+    flat[at[:, None] + cols] = bits(uv_src[v])
+    flat[(4 * blk + w * nv)[fits][:, None] + cols] = bits(src[voff[1:][fits]])
+    flat[(at + 4 * nus[r])[:, None] + cols] = bits(uv_dst[v])
 
     nxt, lid = walk_tables(dlog, forward)
-    m = fuv.shape[0]
-    r = row_ids(foff, m)
-    row = blk[r] + nus[r] + nud[r] + torch.arange(m, device=dev) - foff[r]
-    has = nxt >= 0
+    r = row_ids(foff, fuv.shape[0])
+    e = fits[r]                                          # face entries of packed records
+    r, nxt, lid, tri = r[e], nxt[e], lid[e], fuv.long()[e]
+    row = blk[r] + nus[r] + nud[r] + torch.arange(fuv.shape[0], device=dev)[e] - foff[r]
     to = nxt.clamp_min(0)
-    tri = fuv.long()
+    has = (nxt >= 0) & fits[to]                          # leads to a packed record
     zero = torch.zeros_like(nxt)
     words[row, 0] = nxt.to(torch.int32)
     words[row, 1] = torch.where(has, blk[to], -1).to(torch.int32)
     words[row, 2] = _bytes4(tri[:, 0], tri[:, 1], tri[:, 2], torch.where(has, nv[to], zero))
+    lid = torch.where(has[:, None], lid, 0)
     words[row, 3] = _bytes4(lid[:, 0], lid[:, 1], lid[:, 2], torch.where(has, nf[to], zero))
     rec = torch.stack([blk, nv | (nf << 16), voff[:-1], foff[:-1]], 1).to(torch.int32)
-    chunks = int((nud + nf).max()) if n else 0
+    chunks = int((nud + nf)[fits].max()) if bool(fits.any()) else 0
     return PackedWalk(rec.contiguous(), words, chunks)
 
 
@@ -325,14 +334,16 @@ def query_walk(dlog: DeviceCollapseLog, forward: bool, BC: torch.Tensor, BF: tor
     lib = load_library()
     fn = lib.smg_query_walk_f32 if BC.dtype == torch.float32 else lib.smg_query_walk_f64
     walk = dlog.packed(forward)
-    fidx = dlog.fidx_post if forward else dlog.fidx_pre
+    uv_src, uv_dst, _, fuv, fidx = dlog.side(forward)
     threads, smem = launch_shape(walk.chunks)
     with torch.cuda.device(BC.device):
         err = fn(
             dlog.subset.data_ptr(), fidx.data_ptr(), dlog.dim_off.data_ptr(),
             dlog.dim_dat.data_ptr(), walk.rec.data_ptr(), walk.pack.data_ptr(),
+            uv_src.data_ptr(), uv_dst.data_ptr(), fuv.data_ptr(),
             BC.data_ptr(), BF.data_ptr(), FIdx.data_ptr(), BC.shape[0], dlog.n_collapse,
-            1 if forward else 0, threads, smem, torch.cuda.current_stream().cuda_stream,
+            dlog.subset.shape[0], 1 if forward else 0, threads, smem,
+            torch.cuda.current_stream().cuda_stream,
         )
     query_walk.launches += 1
     if err != 0:

@@ -104,3 +104,22 @@ def subdivision_hierarchy(n_subdiv: int, project: bool = True):
     meshes = meshes[::-1]  # finest first
     Ps = Ps_up[::-1]
     return meshes, Ps
+
+
+def drum(n: int, height: float = 1.0):
+    """A closed drum: two rings of n vertices on the unit circle at z =
+    ±height/2, each capped by a fan around a centre vertex of valence n,
+    joined by a band of 2n side faces (2n + 2 vertices, 4n faces).
+    Decimated, its fans collapse into records of ~n vertices, larger than
+    any record of the icosphere logs; returns (V, F)."""
+    t = 2.0 * np.pi * np.arange(n) / n
+    ring = np.stack([np.cos(t), np.sin(t)], axis=1)
+    z = np.full((n, 1), height / 2.0)
+    V = np.vstack([np.hstack([ring, z]), np.hstack([ring, -z]),
+                   [[0.0, 0.0, height / 2.0], [0.0, 0.0, -height / 2.0]]])
+    i = np.arange(n)
+    j = (i + 1) % n
+    top, bottom = np.full(n, 2 * n), np.full(n, 2 * n + 1)
+    F = np.vstack([np.stack([top, i, j], 1), np.stack([bottom, n + j, n + i], 1),
+                   np.stack([i, n + i, n + j], 1), np.stack([i, n + j, j], 1)])
+    return V, F.astype(np.int64)
