@@ -42,6 +42,15 @@ paths through their public entry points:
   ``entry()``'s V-cycle; then K1/K2 at the bench's icosphere(9) shapes,
   held to the plain version and timed beside cuSPARSE (phase 20, a
   process of its own);
+- the probes (``surface_multigrid_code_torch/probes/``, the counterparts
+  of ``benchmarks/probes/``' Pallas probes; on no path of the port):
+  phase 20's process also runs the K1 probes (``bf16_values``,
+  ``staged_spmv``, ``band_spmv``) on ico9's A_0, then on ico7's, the band
+  also on ico6's; phase 21, a process of its own, runs the K4 probes
+  (``psd_precision`` on random, bunny_15K face and edge blocks,
+  ``psd_stages`` at 31,608 and 505,664 blocks). Each probe's kernels are
+  counted around its measurement and held to their plain versions, and
+  each prints its JSON line;
 - persistence and the CLI: the ico7 and bunny_15K device hierarchies
   through ``save_device_hierarchy`` / ``load_device_hierarchy`` (bitwise,
   the same solve), the host hierarchy npz, and ``cli.main`` running
@@ -67,7 +76,7 @@ version; then K1/K2 are held to their plain versions at the path's own
 shapes, and K5 to its plain version and the host walk. It times V-cycles, MCF and balloon steps and kernels against the
 plain versions (the MCF and balloon timings each in a child process,
 ``--child mcf|balloon``, phase 18 in one, ``--child balloon-large``,
-and phase 20, ``--child ico9``);
+phase 20, ``--child ico9``, and phase 21, ``--child k4-probes``);
 every profiler reading is held to CUDA-event times), and ends with
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": N}}
@@ -100,6 +109,13 @@ import torch
 
 # The bounds count as the package's bench counts (the H100's peaks).
 from surface_multigrid_code_torch.utils.bounds import bound_ms, spmv_bytes
+from surface_multigrid_code_torch.utils.timing import (
+    cuda_ms,
+    device_ms,
+    in_turns,
+    queued_ms,
+    timed_turns,
+)
 
 EPIS = (None, "axpby", "resid", "add", "resid_scaled")
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -118,6 +134,30 @@ BLOCK_KERNELS = {
 }
 QUERY_KERNEL = ("surface_multigrid_code_torch/csrc/query_walk.cu",
                 "surface_multigrid_code_tpu/query/device.py:123 (XLA while_loop; no Pallas kernel)")
+# The probes' kernels (probes/, phases 20-21): name: (source, the TPU
+# kernel whose question it answers)
+PROBE_KERNELS = {
+    "ns_sign_apply_tc_tf32": ("surface_multigrid_code_torch/csrc/psd_probe.cu",
+                              "benchmarks/probes/probe_psd_precision.py:30"),
+    "ns_sign_apply_tc_3xtf32": ("surface_multigrid_code_torch/csrc/psd_probe.cu",
+                                "benchmarks/probes/probe_psd_precision.py:30"),
+    "ns_sign_copy": ("surface_multigrid_code_torch/csrc/psd.cu",
+                     "benchmarks/probes/probe_psd_stages.py:19"),
+    "spmv_bf16_values": ("surface_multigrid_code_torch/csrc/spmv_probe.cu",
+                         "benchmarks/probes/probe_bf16_chain.py:34"),
+    "spmv_staged": ("surface_multigrid_code_torch/csrc/spmv_probe.cu",
+                    "benchmarks/probes/probe_dbuf.py:33"),
+    "band_spmv_tc": ("surface_multigrid_code_torch/csrc/spmv_probe.cu",
+                     "benchmarks/probes/probe_mxu_band.py:44"),
+}
+# Phase 20's K1 probes: (module, orders of the operators, label); ico9's is
+# phase 20's own A_0, ico7's and ico6's come from bench.ico_operators
+K1_PROBES = (("bf16_values", (9, 7), "ico{k} A_0 axpby"),
+             ("staged_spmv", (9, 7), "ico{k} A_0 axpby"),
+             ("band_spmv", (9, 7, 6), "ico{k} A_0"))
+# Phase 21: psd_precision's edge set, 9x9 blocks with every eigenvalue in
+# EDGE_EIGS (as given, no scaling)
+PROBE_EDGE_BLOCKS = 4096
 # Balloon: example 06 at the run_balloon defaults; the oracle gaps allowed
 # between the multigrid and the direct f64 step (max|disp|, relative): the
 # tol-2e-1 multigrid direction is least accurate in the first step.
@@ -173,15 +213,9 @@ MCF_MESHES = (("bunny", False, 20, True), ("ogre", False, 3, False),
 MCF_TOL = 5e-7
 MCF_EXACT_GAP = 5e-5
 MCF_TIMED_STEPS = 6  # CUDA events around each; step 0 warms up
-# The profiler's checks. A kernel's mean time per recorded launch t is
-# held to its back-to-back time per call b (burst_ms: the kernel plus the
-# gap to the next launch, 1.02-1.24 us on the H100 at every shape timed):
-# PROFILER_BAND[0] * b - LAUNCH_GAP_MS <= t <= PROFILER_BAND[1] * b, which
-# a reading at half the kernel's time fails at every shape. A profiled
-# step must have recorded at least STEP_RECORDED of each hand kernel's
-# counted launches.
-PROFILER_BAND = (0.9, 1.15)
-LAUNCH_GAP_MS = 1.5e-3
+# The profiler's check of a step (a kernel's is utils.timing's
+# PROFILER_BAND): a profiled step must have recorded at least
+# STEP_RECORDED of each hand kernel's counted launches.
 STEP_RECORDED = 0.9
 CHILD_RESULT = "child result: "
 # Relative tolerance of the plain f32 ico solves. Their f32 residual floor
@@ -537,113 +571,6 @@ def plain_spmv():
         smoothers.fused_spmv, vc.fused_spmv = saved
 
 
-def cuda_ms(fn, reps, warmup=3):
-    """Per-call time of fn between CUDA events around reps back-to-back
-    calls: the host's enqueue time where that is longer than the device's."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
-def device_ms(fn, reps, kernel=None, counts=None):
-    """One profiler session of reps calls of fn. Returns a record: "ms",
-    the device time per call: without ``kernel`` the summed durations of
-    the kernels and copies recorded, over reps; with ``kernel`` (a
-    substring of the name of the one kernel a call of fn launches) the
-    mean duration of its recorded launches. "events": device events
-    recorded per call; "wall_ms": the session's time per call between
-    CUDA events around the reps calls (the same sample). With ``counts``
-    ({kernel name substring: () -> the wrapper's launch count}):
-    "counted", the launches of each in the session, and "recorded", the
-    events of that name the profiler kept. The profiler was seen to drop
-    some events of a session (17 of 20 launches, every session of one
-    call), so a sum over reps undercounts where the mean of a named kernel
-    does not."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    counts = counts or {}
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(8):  # a session now and then records no device event
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            before = {k: c() for k, c in counts.items()}
-            e0.record()
-            for _ in range(reps):
-                fn()
-            e1.record()
-            torch.cuda.synchronize()
-            counted = {k: c() - before[k] for k, c in counts.items()}
-        dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        ev = [e for e in dev_ev if kernel is None or kernel in e.name]
-        if ev:
-            total = sum(e.time_range.elapsed_us() for e in ev) / 1e3
-            return {"ms": total / reps if kernel is None else total / len(ev),
-                    "events": len(dev_ev) / reps, "wall_ms": e0.elapsed_time(e1) / reps,
-                    "counted": counted,
-                    "recorded": {k: sum(k in e.name for e in dev_ev) for k in counts}}
-        log(f"  profiler session {attempt} recorded no device event"
-            + ("" if kernel is None else f" named {kernel}") + "; again")
-        time.sleep(1.0)
-    raise RuntimeError("the profiler recorded no device event in 8 sessions")
-
-
-def burst_ms(fn, reps):
-    """Per-call device time of fn from CUDA events around reps calls queued
-    behind a spin kernel (``torch.cuda._sleep``), so that the card runs
-    them back to back however long the host takes per call: each call's
-    kernels plus the gaps between launches. The spin is lengthened until
-    the host has queued every call before it ends."""
-    fn()
-    torch.cuda.synchronize()
-    cycles = 20_000_000
-    for _ in range(4):
-        ea, e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-        ea.record()
-        torch.cuda._sleep(cycles)
-        e0.record()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        host_ms = 1e3 * (time.perf_counter() - t0)
-        e1.record()
-        torch.cuda.synchronize()
-        if host_ms < 0.8 * ea.elapsed_time(e0):
-            return e0.elapsed_time(e1) / reps
-        cycles *= 4
-    raise RuntimeError("the calls could not be queued behind the spin kernel")
-
-
-def checked_kernel_ms(fn, reps, kernel, what, sessions=3):
-    """The profiler's mean time of the named kernel over reps calls of fn,
-    held to the back-to-back event time per call (burst_ms) of the same
-    calls (PROFILER_BAND, LAUNCH_GAP_MS). A session whose reading falls
-    outside is discarded and logged, as one that records no event is;
-    the run fails when ``sessions`` sessions in a row misread the kernel.
-    Returns (profiler ms, burst ms)."""
-    burst = burst_ms(fn, reps)
-    lo, hi = PROFILER_BAND[0] * burst - LAUNCH_GAP_MS, PROFILER_BAND[1] * burst
-    for _ in range(sessions):
-        ms = device_ms(fn, reps, kernel)["ms"]
-        msg = (f"{what}: the profiler reads {kernel} at {1e3 * ms:.3f} us a launch, "
-               f"back-to-back calls take {1e3 * burst:.3f} us: outside "
-               f"[{1e3 * lo:.3f}, {1e3 * hi:.3f}] us")
-        if lo <= ms <= hi:
-            return ms, burst
-        log(f"  {msg}; discarded, again")
-    raise RuntimeError(f"{msg}, in {sessions} sessions")
-
-
 def checked_step(fn, counts, what, reps=1):
     """A profiled run of fn (a whole step or cycle): device_ms(fn, reps,
     counts=counts). Each hand kernel of ``counts`` must have at least
@@ -657,14 +584,11 @@ def checked_step(fn, counts, what, reps=1):
     return rec
 
 
-def in_turns(run, plain_ctx):
-    """run() with the kernels and with the plain version, in the order
-    plain, kernel, kernel, plain; returns the medians of each."""
-    res = {"kernel": [], "plain": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        with plain_ctx() if which == "plain" else contextlib.nullcontext():
-            res[which].append(run())
-    return {k: float(np.median(v)) for k, v in res.items()}, res
+def chain_ms(chain, ctx):
+    """ms per V-cycle of chain() (10 cycles) under the context ctx (the
+    kernels, or plain_spmv), between CUDA events over 3 chains."""
+    with ctx():
+        return cuda_ms(chain, 3) / 10
 
 
 def timings(depth, V, M, datas, dev):
@@ -682,7 +606,9 @@ def timings(depth, V, M, datas, dev):
             for _ in range(n):
                 u = vcycle(data.hier, b, u, data.cfg)
 
-        wall, raw = in_turns(lambda: cuda_ms(chain, 3) / 10, plain_spmv)
+        raw = in_turns({"plain": plain_spmv, "kernel": contextlib.nullcontext},
+                       ("plain", "kernel", "kernel", "plain"), lambda ctx: chain_ms(chain, ctx))
+        wall = {k: float(np.median(v)) for k, v in raw.items()}
         prof = checked_step(lambda: vcycle(data.hier, b, z, data.cfg),
                             {"spmv_fused_kernel": lambda: fused_spmv.launches},
                             f"ico{depth} V-cycle ({sm.value})", reps=5)
@@ -1227,25 +1153,6 @@ def bsr_bytes(A, epi, itemsize=4):
     nbytes += per * len({None: "", "axpby": "ubs", "resid": "b", "add": "u",
                          "resid_scaled": "bs"}[epi])
     return nbytes, 18 * A.nnz
-
-
-def timed_turns(fns, turns, reps, kernels, label):
-    """Device time (profiler) and per-call time (events) of each of fns,
-    one measurement of reps calls per entry of turns. ``kernels`` maps the
-    fns that launch one hand kernel a call to its name: those are timed by
-    that kernel's recorded launches and held to their back-to-back time
-    (checked_kernel_ms). Returns ({name: [device ms per turn]}, {name:
-    [call ms per turn]}, {name: [back-to-back ms per turn]})."""
-    dev_ms, call_ms, burst = ({w: [] for w in fns} for _ in range(3))
-    for w in turns:
-        if w in kernels:
-            d, b = checked_kernel_ms(fns[w], reps, kernels[w], f"{label} ({w})")
-            burst[w].append(b)
-        else:
-            d = device_ms(fns[w], reps)["ms"]
-        dev_ms[w].append(d)
-        call_ms[w].append(cuda_ms(fns[w], reps))
-    return dev_ms, call_ms, burst
 
 
 def bsr_shapes(hier, dev, reps=20, phase="phase 9"):
@@ -1972,6 +1879,57 @@ def read_counts(what, needed):
     return got
 
 
+def probe_counters():
+    """{probe kernel: () -> its wrapper's launch count}."""
+    from surface_multigrid_code_torch.probes import (
+        band_spmv,
+        bf16_values,
+        psd_precision,
+        psd_stages,
+        staged_spmv,
+    )
+
+    tc = psd_precision.ns_sign_apply_tc
+    return {
+        "ns_sign_apply_tc_tf32": lambda: tc.launches_by_passes[1],
+        "ns_sign_apply_tc_3xtf32": lambda: tc.launches_by_passes[3],
+        "ns_sign_copy": lambda: psd_stages.ns_sign_copy.launches,
+        "spmv_bf16_values": lambda: bf16_values.spmv_bf16_values.launches,
+        "spmv_staged": lambda: staged_spmv.spmv_staged.launches,
+        "band_spmv_tc": lambda: band_spmv.band_spmv_tc.launches,
+    }
+
+
+def reset_probe_counts():
+    """Set every probe kernel's launch count to 0."""
+    from surface_multigrid_code_torch.probes import (
+        band_spmv,
+        bf16_values,
+        psd_precision,
+        psd_stages,
+        staged_spmv,
+    )
+
+    tc = psd_precision.ns_sign_apply_tc
+    tc.launches, tc.launches_by_passes = 0, dict.fromkeys(tc.launches_by_passes, 0)
+    for f in (psd_stages.ns_sign_copy, bf16_values.spmv_bf16_values, staged_spmv.spmv_staged,
+              band_spmv.band_spmv_tc):
+        f.launches = 0
+
+
+def read_probe_counts(what, needed):
+    """The probe kernels' launches since reset_probe_counts; fails if a
+    kernel of ``needed`` was not launched. (A probe times its plain
+    version beside its kernel, so plain calls are allowed here.)"""
+    torch.cuda.synchronize()
+    got = {name: fn() for name, fn in probe_counters().items()}
+    log(f"{what}: probe launches {got}")
+    for name in needed:
+        if got[name] <= 0:
+            raise RuntimeError(f"probe kernel {name} was not launched ({what})")
+    return got
+
+
 def run_child(phase, state):
     """Run a timing phase in a process of its own (``python3 chip_smoke.py
     --child phase``, state pickled on its standard input), so that no
@@ -1996,8 +1954,8 @@ def run_child(phase, state):
 
 def child(phase) -> int:
     """The body of ``--child phase``: phase 11 ("mcf"), phase 18
-    ("balloon-large"), phase 20 ("ico9") or phase 9 ("balloon", from the
-    state on standard input)."""
+    ("balloon-large"), phase 20 ("ico9"), phase 21 ("k4-probes", from the
+    state on standard input) or phase 9 ("balloon", from the state)."""
     state = pickle.load(sys.stdin.buffer)
     dev = torch.device("cuda", 0)
     from surface_multigrid_code_torch import _build, mg_precompute
@@ -2009,6 +1967,8 @@ def child(phase) -> int:
         result = mcf_timings(dev)
     elif phase == "ico9":
         result = ico9_kernels(dev)
+    elif phase == "k4-probes":
+        result = k4_probes(state["pos"], dev)
     elif phase == "balloon-large":
         result = large_balloon(dev)
     else:
@@ -2101,7 +2061,159 @@ def ico9_kernels(dev):
              ("A_0 axpby C=3, ico9", S["A"], 3, "axpby", None, dinv),
              ("P_1 add, ico9", S["P"], 1, "add", None, None),
              ("PT_1, ico9", S["PT"], 1, None, None, None)]
-    return {"errs": errs, "shapes": spmv_shapes(cases, dev, phase="phase 20"), "host_s": times}
+    shapes = spmv_shapes(cases, dev, phase="phase 20")
+    del S, dinv, P1, PT1
+    return {"errs": errs, "shapes": shapes, "host_s": times, "probes": k1_probes(A0, dev)}
+
+
+def k1_probes(A9, dev):
+    """Phase 20, after K1/K2: the three K1 probes (K1_PROBES: bf16 values,
+    x staged by chunk, the band on tensor cores) on ico9's A_0 (``A9``),
+    then on ico7's, and the band also on ico6's (``bench.ico_operators``).
+    Each operator's measurement runs with the probe kernels' counts set to
+    0 just before it and read just after (its kernel must have launched,
+    unless the probe skipped the operator); then the probe holds its
+    kernel to its plain version. Logs each probe's JSON line; returns
+    {probe: line}."""
+    import importlib
+
+    from surface_multigrid_code_torch import bench
+    from surface_multigrid_code_torch.probes._common import device_record
+
+    t0 = time.perf_counter()
+    ops = {9: A9}
+    for k in sorted({k for _, orders, _ in K1_PROBES for k in orders} - {9}):
+        ops[k] = bench.ico_operators(k)[0][0]
+    log(f"phase 20: probe operators {sorted(ops)} in {time.perf_counter() - t0:.1f} s")
+    kernel = {"bf16_values": "spmv_bf16_values", "staged_spmv": "spmv_staged",
+              "band_spmv": "band_spmv_tc"}
+    out = {}
+    for name, orders, label in K1_PROBES:
+        mod = importlib.import_module(f"surface_multigrid_code_torch.probes.{name}")
+        runs = []
+        for k in orders:
+            t1 = time.perf_counter()
+            p = mod.prepare(ops[k], dev, label.format(k=k))
+            reset_probe_counts()
+            rec = mod.measure(p, dev)
+            rec["launches"] = read_probe_counts(
+                f"phase 20: {name} {label.format(k=k)}",
+                () if "skipped" in rec else (kernel[name],))
+            rec["check"] = mod.check(p)
+            rec["wall_s"] = time.perf_counter() - t1
+            del p
+            runs.append(rec)
+        out[name] = {"probe": name, "device": device_record(dev), "seed": 0, "runs": runs}
+        log(json.dumps(out[name]))
+    log(f"phase 20: K1 probes in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def face_hessians(V, F, pos, dev):
+    """The balloon shell's 9x9 f32 face Hessians at pos, symmetrised, not
+    scaled (numpy): psd_precision scales and clamps them itself."""
+    shell, _ = balloon_shell(V, F, dev)
+    x9 = torch.as_tensor(np.asarray(pos), device=dev).float()[shell.Ft].reshape(-1, 9)
+    H = shell.face_hess(x9, shell.abars.float())
+    return (0.5 * (H + H.transpose(-1, -2))).cpu().numpy()
+
+
+def k4_probes(pos, dev):
+    """Phase 21 (a process of its own, see run_child): the two K4 probes.
+    psd_precision on its 31,608 random blocks (timed), on bunny_15K's face
+    Hessians at the balloon's step-3 pose ``pos`` (scaled and clamped as
+    the probe does) and on PROBE_EDGE_BLOCKS edge blocks (as given);
+    psd_stages at each of its block counts. Each measurement runs with
+    the probe kernels' counts set to 0 just before it and read just after;
+    then the kernels are held to their plain versions. Logs each probe's
+    JSON line; returns {probe: line}."""
+    from surface_multigrid_code_torch.probes import psd_precision, psd_stages
+    from surface_multigrid_code_torch.probes._common import device_record
+    from surface_multigrid_code_torch.utils.obj_io import read_obj
+    from surface_multigrid_code_torch.utils.paths import mesh_path
+
+    t0 = time.perf_counter()
+    Vb, Fb = read_obj(mesh_path(BALLOON_MESH))
+    sets = {"random": (psd_precision.random_blocks(psd_precision.BLOCKS, 0), True),
+            f"{BALLOON_MESH} face Hessians": (face_hessians(Vb, Fb, pos, dev), True),
+            "edge": (edge_blocks(PROBE_EDGE_BLOCKS, 9, 21)[0].astype(np.float32), False)}
+    inputs = {}
+    for label, (H, scale) in sets.items():
+        p = psd_precision.prepare(H, dev, scale)
+        reset_probe_counts()
+        rec = psd_precision.measure(p, dev, timed=label == "random")
+        rec["launches"] = read_probe_counts(f"phase 21: psd_precision {label}",
+                                            ("ns_sign_apply_tc_tf32", "ns_sign_apply_tc_3xtf32"))
+        rec["tc_checks"] = psd_precision.check_tc(p)
+        inputs[label] = rec
+    prec = {"probe": "psd_precision", "device": device_record(dev), "seed": 0, "inputs": inputs}
+    log(json.dumps(prec))
+    runs = []
+    for m in psd_stages.BLOCKS:
+        X = psd_stages.blocks_on(m, dev)
+        reset_probe_counts()
+        rec = psd_stages.measure(X, dev)
+        rec["launches"] = read_probe_counts(f"phase 21: psd_stages {m} blocks", ("ns_sign_copy",))
+        rec["checks"] = psd_stages.check_stages(X)
+        runs.append(rec)
+    stages = {"probe": "psd_stages", "device": device_record(dev), "seed": 0, "runs": runs}
+    log(json.dumps(stages))
+    log(f"phase 21: K4 probes in {time.perf_counter() - t0:.1f} s")
+    return {"psd_precision": prec, "psd_stages": stages}
+
+
+def probe_rows(k1, k4):
+    """The probe kernels' rows of the kernels line from phases 20-21: per
+    kernel its launches (summed over the counted measurements), its
+    largest error against its plain version, and the times and bound of
+    one shape: the random blocks (ns_sign_apply_tc), 31,608 blocks (the
+    copy), ico9's A_0 (bf16 values, staged x) and ico7's A_0 in bf16 at
+    nc = 128 (the band)."""
+    prec, stages = k4["psd_precision"]["inputs"], k4["psd_stages"]["runs"]
+    rows = {}
+    for name, passes, variant in (("ns_sign_apply_tc_tf32", 1, "tf32"),
+                                  ("ns_sign_apply_tc_3xtf32", 3, "3xtf32")):
+        v = prec["random"]["variants"][variant]
+        rows[name] = {
+            "launches": sum(r["launches"][name] for r in prec.values()),
+            "max_abs_err": max(c["max_abs_err"] for r in prec.values()
+                               for k, c in r["tc_checks"].items()
+                               if k.startswith(f"passes{passes}_steps")),
+            "kernel": v["ms"], "plain": v["plain_ms"], "bound": v["bound_ms"],
+            "bound_by": v["bound_by"], "library": None, "kernel_call": v["call_ms"],
+            "plain_call": v["plain_call_ms"]}
+    copy = stages[0]["stages"]["copy"]
+    rows["ns_sign_copy"] = {
+        "launches": sum(r["launches"]["ns_sign_copy"] for r in stages),
+        "max_abs_err": max(r["checks"]["copy"]["max_abs_err"] for r in stages),
+        "kernel": copy["ms"], "plain": copy["plain_ms"], "bound": copy["bound_ms"],
+        "bound_by": copy["bound_by"], "library": copy["library_ms"],
+        "kernel_call": copy["call_ms"], "plain_call": copy["plain_call_ms"]}
+    bf16, staged = k1["bf16_values"]["runs"], k1["staged_spmv"]["runs"]
+    rows["spmv_bf16_values"] = {
+        "launches": sum(r["launches"]["spmv_bf16_values"] for r in bf16),
+        "max_abs_err": max(r["check"]["max_abs_err"] for r in bf16),
+        "kernel": bf16[0]["ms_bf16"], "plain": bf16[0]["plain_ms"],
+        "bound": bf16[0]["bound_ms_bf16"], "bound_by": bf16[0]["bound_by_bf16"],
+        "library": None, "kernel_call": bf16[0]["call_ms_bf16"],
+        "plain_call": bf16[0]["plain_call_ms"]}
+    rows["spmv_staged"] = {
+        "launches": sum(r["launches"]["spmv_staged"] for r in staged),
+        "max_abs_err": max(r["check"]["max_abs_err"] for r in staged),
+        "kernel": staged[0]["ms"], "plain": staged[0]["plain_ms"], "bound": staged[0]["bound_ms"],
+        "bound_by": staged[0]["bound_by"], "library": staged[0]["library_ms"],
+        "kernel_call": staged[0]["call_ms"], "plain_call": staged[0]["plain_call_ms"]}
+    band = [r for r in k1["band_spmv"]["runs"] if "skipped" not in r]
+    case = next(c for c in band[0]["cases"] if c["band"] == "bfloat16" and c["nc"] == 128)
+    rows["band_spmv_tc"] = {
+        "launches": sum(r["launches"]["band_spmv_tc"] for r in k1["band_spmv"]["runs"]),
+        "max_abs_err": max(c["max_abs_err"] for r in band for c in r["check"].values()),
+        "kernel": case["ms"], "plain": case["plain_ms"], "bound": case["bound_ms"],
+        "bound_by": case["bound_by"], "library": case["library_ms"],
+        "kernel_call": case["call_ms"], "plain_call": case["plain_call_ms"]}
+    return rows
+
+
 
 
 # ---------------------------------------------------------------- phase 13
@@ -2423,34 +2535,6 @@ def walk_bytes(qlog, stats, forward, n, itemsize):
               + 4 * int(np.diff(qlog["dim_off"])[faces].sum())
               + 2 * n * (3 * itemsize + 16))
     return nbytes, 11 * stats["steps"] + 28 * stats["tested"]
-
-
-def queued_ms(prep, fn, reps):
-    """Device time of fn alone, per call (median): reps pairs (prep, fn)
-    queued behind a spin kernel so that the card runs them back to back
-    however long the host takes, with CUDA events around each fn only."""
-    prep()
-    fn()
-    torch.cuda.synchronize()
-    cycles = 20_000_000
-    for _ in range(4):
-        ea, eb = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        evs = [tuple(torch.cuda.Event(enable_timing=True) for _ in range(2)) for _ in range(reps)]
-        ea.record()
-        torch.cuda._sleep(cycles)
-        eb.record()
-        t0 = time.perf_counter()
-        for e0, e1 in evs:
-            prep()
-            e0.record()
-            fn()
-            e1.record()
-        host_ms = 1e3 * (time.perf_counter() - t0)
-        torch.cuda.synchronize()
-        if host_ms < 0.8 * ea.elapsed_time(eb):
-            return float(np.median([e0.elapsed_time(e1) for e0, e1 in evs]))
-        cycles *= 4
-    raise RuntimeError("the calls could not be queued behind the spin kernel")
 
 
 def query_timings(F, Fc, qlog, host, dev, reps=5):
@@ -3792,9 +3876,19 @@ def main() -> int:
         launches[name] += n
     entry_rec = entry_path(dev)
     launches["spmv_fused"] += entry_rec["launches"]["spmv_fused"]
+    t20 = time.perf_counter()
     ico9 = run_child("ico9", {})
     for name, e in ico9["errs"].items():
         errs[name] = max(errs[name], e)
+    t20 = time.perf_counter() - t20
+
+    # phase 21: the K4 probes (psd_precision, psd_stages), in a process of
+    # its own; phase 20's child ran the K1 probes
+    t21 = time.perf_counter()
+    k4p = run_child("k4-probes", {"pos": positions[BALLOON_STEPS - 1]})
+    t21 = time.perf_counter() - t21
+    probes = probe_rows(ico9["probes"], k4p)
+    log(f"phases 20-21: {t20:.1f} s, {t21:.1f} s")
 
     # phase 15: the sharded paths, on ranks that share the card; each rank
     # sets its counts to 0 just before its path and reads them just after
@@ -3849,9 +3943,15 @@ def main() -> int:
     # kernel's CUDA-event time at QUERY_CHECK_N f2c queries, plain_ms and
     # plain_call_ms the plain version's wall per call there, call_ms the
     # wall of query_fine_to_coarse_device (transfers included)
+    #
+    # The probe kernels (phases 20-21; on no path of the port): launches
+    # from the probes' counted measurements; the times as above (utils.
+    # timing, medians over the probe's turns), at the shape probe_rows
+    # names: L2 warm except ico9's A_0 (bf16 values, staged x); bound_ms
+    # at the TF32 and bf16 tensor-core peaks for the tensor-core kernels
     sources = {**{n: (SOURCE, rep) for n, rep in KERNELS.items()}, **BLOCK_KERNELS,
                "query_walk": QUERY_KERNEL}
-    log(json.dumps({"kernels": [
+    rows = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],
          "ms": ker[name]["kernel"], "plain_ms": ker[name]["plain"],
@@ -3859,7 +3959,17 @@ def main() -> int:
          "library_ms": ker[name]["library"],
          "call_ms": ker[name]["kernel_call"], "plain_call_ms": ker[name]["plain_call"]}
         for name, (src, rep) in sources.items()
-    ]}))
+    ]
+    rows += [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": probes[name]["launches"], "max_abs_err": probes[name]["max_abs_err"],
+         "ms": probes[name]["kernel"], "plain_ms": probes[name]["plain"],
+         "bound_ms": probes[name]["bound"], "bound_by": probes[name]["bound_by"],
+         "library_ms": probes[name]["library"], "call_ms": probes[name]["kernel_call"],
+         "plain_call_ms": probes[name]["plain_call"]}
+        for name, (src, rep) in PROBE_KERNELS.items()
+    ]
+    log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,7 +10,8 @@ Each FILE is a version of one source of ``surface_multigrid_code_torch/csrc/``
 ``query_walk.cu`` for K5): the
 checkout's, or one taken from an earlier commit with
 ``git show REV:surface_multigrid_code_torch/csrc/FILE > OUT``. Each is
-compiled by nvcc with the port's flags into a library of its own. Every
+compiled by nvcc with the port's flags (and ``csrc/`` on the include path,
+for ``spmv_fused.cuh``) into a library of its own. Every
 version's output is held against the plain version at ``chip_smoke.TOL``;
 then the versions are timed on the same inputs (and, for the SpMVs, the
 same launch plan, ``ops.spmv.launch_lanes``) in turns A B ... B A, device
@@ -34,7 +35,7 @@ time per call from the profiler (kernel events only), L2 warm.
 - ``query``: the f2c walk (f32) at each of ``chip_smoke.QUERY_COUNTS`` on
   phase 13's log (icosphere(7) to F/64, 161,280 records): each version's
   result against the plain version at ``QUERY_LIMITS`` (bit for bit),
-  then its time per call by CUDA events (``chip_smoke.queued_ms``, the
+  then its time per call by CUDA events (``utils.timing.queued_ms``, the
   calls queued behind a spin kernel) in turns; then the walk alone on the
   queries sorted by start face, and the sort, the walk and the unpermute
   together (the JAX package's ``_query_chunked`` order), against the
@@ -60,6 +61,7 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
+from surface_multigrid_code_torch.utils import timing
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 EPI_CODE = {None: 0, "axpby": 1, "resid": 2, "add": 3, "resid_scaled": 4}
@@ -93,7 +95,7 @@ VARIANT = {"spmv": "int lanes", "bsr": "int lanes", "psd": "int lanes",
 
 def build(kernel, versions):
     """Compile every version at once; returns {name: (library, takes lanes)}."""
-    from surface_multigrid_code_torch._build import BUILD_DIR, NVCC_FLAGS, _nvcc
+    from surface_multigrid_code_torch._build import BUILD_DIR, NVCC_FLAGS, SOURCES, _nvcc
 
     out_dir = BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -101,7 +103,8 @@ def build(kernel, versions):
     for name, src in versions.items():
         so = out_dir / f"lib{kernel}_{name}.so"
         procs[name] = (so, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(so), str(src)],
+            [_nvcc(), *NVCC_FLAGS, "-I", str(SOURCES[0].parent), "-shared", "-o", str(so),
+             str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     libs = {}
     for name, (so, proc) in procs.items():
@@ -240,15 +243,10 @@ def query_ab(libs, dev, reps):
                 w.copy_(t)
 
         order = [*runs, *reversed(runs)]
-        warm = {name: [] for name in runs}
-        for name in order:
-            warm[name].append(cs.queued_ms(prep, runs[name], reps))
-        alone = {name: [] for name in runs}
-        for name in order:
-            alone[name].append(cs.queued_ms(prep_sorted, runs[name], reps))
-        srt = {name: [] for name in runs}
-        for name in order:
-            srt[name].append(cs.queued_ms(lambda: None, sorted_runs[name], reps))
+        warm = timing.in_turns(runs, order, lambda fn: timing.queued_ms(prep, fn, reps))
+        alone = timing.in_turns(runs, order, lambda fn: timing.queued_ms(prep_sorted, fn, reps))
+        srt = timing.in_turns(sorted_runs, order,
+                              lambda fn: timing.queued_ms(lambda: None, fn, reps))
         stats = {}
         cs.walked(query_walk_plain, dlog, True, inputs, stats=stats)
         nbytes, ops = cs.walk_bytes(qlog, stats, True, n, 4)
@@ -267,37 +265,13 @@ def ms_line(turns):
     return ", ".join(f"{name} {[round(t, 4) for t in ts]}" for name, ts in turns.items())
 
 
-def kernel_ms(fn, reps, event, before=None):
-    """Device time per call of fn's kernel (one launch a call, whose name
-    holds ``event``): the mean duration of its launches the profiler
-    recorded (it now and then drops some); ``before`` runs ahead of every
-    call and is not counted."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(8):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                if before is not None:
-                    before()
-                fn()
-            torch.cuda.synchronize()
-        ev = [e for e in prof.events()
-              if e.device_type == DeviceType.CUDA and event in e.name]
-        if ev:
-            return sum(e.time_range.elapsed_us() for e in ev) / len(ev) / 1e3
-    raise RuntimeError("the profiler recorded no kernel in 8 sessions")
-
-
 def in_turns(runs, reps, event, before=None):
-    """{name: [device ms per call, one per turn]} over turns A B ... B A."""
-    order = [*runs, *reversed(runs)]
-    out = {name: [] for name in runs}
-    for name in order:
-        out[name].append(kernel_ms(runs[name], reps, event, before))
-    return out
+    """{name: [device ms per call, one per turn]} over turns A B ... B A:
+    the mean duration of the recorded launches of the kernel whose name
+    holds ``event`` (one a call); ``before`` runs ahead of every call and
+    is not counted."""
+    return timing.in_turns(runs, [*runs, *reversed(runs)],
+                           lambda fn: timing.device_ms(fn, reps, event, before=before)["ms"])
 
 
 def turns_line(warm):

@@ -5,9 +5,10 @@ Every ``csrc/*.cu`` has a plain C interface. Each source is compiled with
 and the objects are linked into one shared library under
 ``surface_multigrid_code_torch/build/`` at first use, loaded with ctypes;
 nothing of PyTorch's headers is compiled, which keeps the build to
-seconds. The library name carries a hash of every source and the flags,
-so an edited source is rebuilt. The compiler's report (``-Xptxas -v``:
-registers, spills) is kept beside the library as ``<name>.log``.
+seconds. The library name carries a hash of every source, every header
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt. The
+compiler's report (``-Xptxas -v``: registers, spills) is kept beside the
+library as ``<name>.log``.
 
 A missing ``nvcc`` or a failed build raises: there is no fallback.
 """
@@ -24,6 +25,7 @@ from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parent
 SOURCES = sorted((_PKG_DIR / "csrc").glob("*.cu"))
+HEADERS = sorted((_PKG_DIR / "csrc").glob("*.cuh"))
 BUILD_DIR = _PKG_DIR / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,6 +44,15 @@ _K2_ARGS = [_p, _p, _p, _p, _p, _p, _p, _p, _d, _p, _i, _i, _i, _i, _p]
 _K3_ARGS = [_p, _p, _p, _p, _p, _p, _p, _p, _d, _i, _i, _i, _p]
 # X, Y, m, d, schedule (host double [2 * steps]), steps, stream
 _K4_ARGS = [_p, _p, _i, _i, _p, _i, _p]
+# the probes' kernels (probes/): K4's copy stage (X, Y, m, stream); K4 on
+# tensor cores (X, Y, m, schedule, steps, passes, stream); x staged by
+# chunk (K1's arguments without rows, then win_lo, win_hi, n, chunk_rows,
+# n_chunks, window, lanes, grid, stream); the band (band, start, X, Y,
+# n_rows, W, n_x, nc, bf16, stream)
+_COPY_ARGS = [_p, _p, _i, _p]
+_TC_ARGS = [_p, _p, _i, _p, _i, _i, _p]
+_STAGED_ARGS = [_p] * 8 + [_d, _p, _p] + [_i] * 6 + [_p]
+_BAND_ARGS = [_p] * 4 + [_i] * 5 + [_p]
 # subset, fidx, dim_off, dim_dat, rec, pack, uv_src, uv_dst, fuv, BC, BF, FIdx, nq,
 # n_collapse, nvert, forward, threads, shared bytes, stream
 _K5_ARGS = [_p] * 12 + [_i] * 6 + [_p]
@@ -56,6 +67,11 @@ SIGNATURES = {
     "smg_ns_sign_apply_f64": _K4_ARGS,
     "smg_query_walk_f32": _K5_ARGS,
     "smg_query_walk_f64": _K5_ARGS,
+    "smg_ns_sign_copy_f32": _COPY_ARGS,
+    "smg_ns_sign_apply_tc_f32": _TC_ARGS,
+    "smg_spmv_bf16v_f32": _K1_ARGS,
+    "smg_spmv_staged_f32": _STAGED_ARGS,
+    "smg_band_spmv_tc": _BAND_ARGS,
 }
 
 
@@ -72,7 +88,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Compile ``csrc/*.cu`` if their library is not built yet; return the path."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in (*SOURCES, *HEADERS):
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     out = BUILD_DIR / f"libsmg_kernels-{h.hexdigest()[:16]}.so"
     if out.exists():

@@ -46,6 +46,9 @@
 // TF32's 10-bit mantissa is the same class of error. At 9 x 9 a tensor
 // core tile pads to 16 x 16, and a split-3 x TF32 product would do about
 // 30 times the useful work, so the CUDA cores are also the faster route.
+// probes/psd_precision.py measures both on the card beside this kernel
+// (csrc/psd_probe.cu: every product on mma.sync TF32, one pass or split
+// into three): both are slower, and one pass leaves blocks unprojected.
 // Both bodies sum each product entry in the order q = 0..d-1, as a chain
 // of FMAs; the plain PyTorch version's bmm sums in its own order.
 //
@@ -149,7 +152,10 @@ __device__ __forceinline__ void sym_product(const float (&A)[kTri<D>],
   }
 }
 
-template <int D>
+// kArith = false compiles the arithmetic out: the CTA stages X and writes
+// it back as Y, the loads and stores of the body alone (Y = X; the copy
+// stage of the probes' stage timing, probes/psd_stages.py).
+template <int D, bool kArith = true>
 __global__ void __launch_bounds__(kSymBlocks)
 ns_sign_apply_registers_kernel(const float* __restrict__ X, float* __restrict__ Y, int m,
                                Schedule sched) {
@@ -163,7 +169,7 @@ ns_sign_apply_registers_kernel(const float* __restrict__ X, float* __restrict__ 
   const float* src = X + g0 * DD;
   for (int k = t; k < nblk * DD; k += kSymBlocks) stage[k] = src[k];
   __syncthreads();
-  if (t < nblk) {
+  if (kArith && t < nblk) {
     float* mine = stage + t * DD;
     float z[N], z2[N], zn[N];
 #pragma unroll
@@ -232,6 +238,14 @@ int ns_sign_apply(const T* X, T* Y, int m, int d, const double* schedule, int st
   return static_cast<int>(cudaGetLastError());
 }
 
+int ns_sign_copy(const float* X, float* Y, int m, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (m <= 0) return static_cast<int>(cudaGetLastError());
+  const int grid = (m + kSymBlocks - 1) / kSymBlocks;
+  ns_sign_apply_registers_kernel<9, false><<<grid, kSymBlocks, 0, stream>>>(X, Y, m, Schedule{});
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // schedule: host array of `steps` (a, b) pairs, copied into the launch.
@@ -243,4 +257,9 @@ extern "C" int smg_ns_sign_apply_f32(const float* X, float* Y, int m, int d,
 extern "C" int smg_ns_sign_apply_f64(const double* X, double* Y, int m, int d,
                                      const double* schedule, int steps, void* stream) {
   return ns_sign_apply<double>(X, Y, m, d, schedule, steps, stream);
+}
+
+// The register body's loads and stores alone, 9 x 9 f32 (Y = X).
+extern "C" int smg_ns_sign_copy_f32(const float* X, float* Y, int m, void* stream) {
+  return ns_sign_copy(X, Y, m, stream);
 }

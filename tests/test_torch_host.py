@@ -172,7 +172,9 @@ def test_port_imports_no_jax():
         "             'parallel.wellhalo', 'parallel.spmd',\n"
         "             'parallel.balloon', 'ops.lscm', 'utils.barycentric', 'ssp.quadrics',\n"
         "             'utils.param', 'solver.host_reference', 'utils.profiler',\n"
-        "             'utils.hostmem', 'utils.mesh', 'bench', 'entry', 'utils.bounds'):\n"
+        "             'utils.hostmem', 'utils.mesh', 'bench', 'entry', 'utils.bounds',\n"
+        "             'probes.psd_precision', 'probes.psd_stages', 'probes.bf16_values',\n"
+        "             'probes.staged_spmv', 'probes.band_spmv', 'utils.timing'):\n"
         "    assert pkg.__name__ + '.' + need in names, need\n"
         "print(len(names))\n"
     )
