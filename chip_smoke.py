@@ -25,6 +25,14 @@ paths through their public entry points:
   ``DeviceBalloonStepper`` on the same hierarchy (phase 17); 10 steps
   on bunny_15K subdivided twice, 252,834 vertices (phase 18, a child
   process), with the first Newton direction held in f64 on the host;
+  the balloon with the shell's bending term (phase 22, a child process:
+  ``ShellEnergy(bending=True)``, 10 ``BsrBalloonStepper`` steps on
+  bunny_15K, 20 K4 launches a step, half of them 18x18 blocks on K4's
+  tiled body; 3 steps in f64 on the card held to the JAX package's f64
+  steps, recorded by ``tests/torch_bending_reference.py``; float32 held
+  to float64 at rest and in the first Newton direction; 2
+  ``DeviceBalloonStepper`` steps, its f64 step 0 held to the JAX
+  package's; one step on the midpoint-subdivided bunny);
 - point queries (``query.device``, K5): 10K, 100K and 1M points walked
   fine -> coarse on the icosphere(7) log of 161,280 records, held to the
   host walk and walked back; examples 07-09 on bunny against
@@ -76,7 +84,8 @@ version; then K1/K2 are held to their plain versions at the path's own
 shapes, and K5 to its plain version and the host walk. It times V-cycles, MCF and balloon steps and kernels against the
 plain versions (the MCF and balloon timings each in a child process,
 ``--child mcf|balloon``, phase 18 in one, ``--child balloon-large``,
-phase 20, ``--child ico9``, and phase 21, ``--child k4-probes``);
+phase 20, ``--child ico9``, phase 21, ``--child k4-probes``, and phase
+22, ``--child bending``);
 every profiler reading is held to CUDA-event times), and ends with
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": N}}
@@ -108,7 +117,11 @@ import numpy as np
 import torch
 
 # The bounds count as the package's bench counts (the H100's peaks).
-from surface_multigrid_code_torch.utils.bounds import bound_ms, spmv_bytes
+from surface_multigrid_code_torch.utils.bounds import (
+    F64_CUDA_CORE_FLOPS_PER_S,
+    bound_ms,
+    spmv_bytes,
+)
 from surface_multigrid_code_torch.utils.timing import (
     cuda_ms,
     device_ms,
@@ -119,6 +132,8 @@ from surface_multigrid_code_torch.utils.timing import (
 
 EPIS = (None, "axpby", "resid", "add", "resid_scaled")
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# K4's instantiations (ops.psd.shape_key): the register body's first
+K4_SHAPES = ("9x9 float32", "9x9 float64", "18x18 float32", "18x18 float64")
 KERNELS = {
     # name: file:line of the TPU kernel it replaces (K1: one column, K2: C)
     "spmv_fused": "surface_multigrid_code_tpu/ops/well.py:871",
@@ -192,6 +207,45 @@ LATE_ORACLE_GAP = 1e-3
 DEVICE_STEPS = 3
 DEVICE_BSR_GAP = 0.05
 DEVICE_SCALAR_GAP = 0.05
+# Phase 22: the bending balloon on bunny_15K, BENDING_STEPS steps of the
+# BSR stepper in float32; a step projects 10 face and 10 bending block sets
+# (BENDING_K4_PER_STEP K4 launches). With bending the multigrid solves do
+# not reach mg_tolerance in max_cycles (every Newton solve runs its 20
+# cycles, the residual falling 0.84-0.94 a cycle), and from step 1 some Newton
+# iterations meet a coarsest operator whose Cholesky factor fails and are
+# rejected. The JAX package does the same: BENDING_REFERENCE, written by
+# tests/torch_bending_reference.py (the JAX package and the port in
+# float64 on the CPU), has its steps 0-2 (0, 4 and 2 rejects), its BSR
+# step 0 0.1395 below the direct f64 step's max|disp| (ORACLE_GAP[0] is
+# 0.1), its two steppers 0.0785 max|disp| apart, and the port within
+# 1.4e-11, 9.9e-9 and 5.2e-6 max|disp| of it (a perturbation grows about
+# 500-fold a step there). So the card's BENDING_REF_STEPS float64 BSR
+# steps, and DeviceBalloonStepper's float64 step 0, are held to that
+# record: max|disp| and mean|disp| within BENDING_REF_GAP[k] relative and
+# the same rejects. float32: at rest the bending gradient cancels against
+# the pressure load, so the float32 Newton right-hand side lies 0.61% from
+# float64's on bunny_15K and 25.6% on the subdivided bunny, in the JAX
+# package as in the port (the record's float32_rest_rhs); the card's is
+# held within BENDING_RHS_FACTOR of the JAX package's. The first Newton
+# direction from rest in float32 is held to float64's within
+# BENDING_F32_DIR (2-norm, relative; read 2.3e-5 and 1.3e-4), and
+# each float32 step 0's max|disp| on bunny_15K to the same stepper's
+# float64 step 0 within BENDING_F32_GAP (read 1.2e-4 to 5.5e-4). Whole
+# float32 steps are recorded against float64, not held: from the seventh
+# to ninth Newton iteration the float64 iteration itself strays (its
+# gradient 2,000-69,000 times step 0's, the line search taking alpha 2^-8
+# or less), and there the float32 direction at the same state departs by
+# 1.4 to 22% (tests/torch_bending_newton.py); later float32 steps are
+# held finite only.
+BENDING_REFERENCE = "tests/torch_bending_reference.json"
+BENDING_STEPS = 10
+BENDING_REF_STEPS = 3
+BENDING_REF_GAP = (1e-8, 1e-6, 1e-4)
+BENDING_DEVICE_STEPS = 2
+BENDING_K4_PER_STEP = 20
+BENDING_F32_GAP = 5e-3
+BENDING_F32_DIR = 2e-3
+BENDING_RHS_FACTOR = 2.0
 # Phase 18: bunny_15K midpoint-subdivided twice, run_balloon for
 # LARGE_STEPS steps; step 0's first Newton direction held on the host in
 # f64 to mg_tolerance + LARGE_RESID_REL ||g|| when its solve converged,
@@ -418,6 +472,16 @@ def check_kernels(A, mg, dev, seed=0):
     log(f"phase 3: K1/K2 {n_cases} kernel-vs-plain cases agree on {len(ops)} operators, "
         f"{len(colors)} GS colors and 6 forced lanes values; max abs err {errs}")
     return errs
+
+
+def compare_sign(Y, ref, what, errs):
+    """_compare for K4's output Y, its error kept under "ns_sign_apply" and
+    under its instantiation's name ("ns_sign_apply <d>x<d> <dtype>")."""
+    from surface_multigrid_code_torch.ops.psd import shape_key
+
+    name = f"ns_sign_apply {shape_key(Y.shape[1], Y.dtype)}"
+    _compare(Y, ref, Y.dtype, what, errs, name)
+    errs["ns_sign_apply"] = max(errs.get("ns_sign_apply", 0.0), errs[name])
 
 
 def _compare(y, ref, dt, what, errs, name):
@@ -745,14 +809,16 @@ def balloon_defaults() -> dict:
             if p.default is not inspect.Parameter.empty}
 
 
-def balloon_shell(V, F, dev):
-    """The example-06 shell (float64 on dev) and 3-expanded lumped mass."""
+def balloon_shell(V, F, dev, bending=False):
+    """The example-06 shell (float64 on dev; with the bending term when
+    ``bending``) and 3-expanded lumped mass."""
     from surface_multigrid_code_torch.models.balloon import lumped_mass_matrix
     from surface_multigrid_code_torch.models.shell import ShellEnergy, lame_parameters
 
     d = balloon_defaults()
     al, be = lame_parameters(d["young"], d["poisson"])
-    shell = ShellEnergy(V, F, d["thickness"], al, be, d["material"], device=dev)
+    shell = ShellEnergy(V, F, d["thickness"], al, be, d["material"], bending=bending,
+                        device=dev)
     return shell, 1000.0 * lumped_mass_matrix(V, F)
 
 
@@ -914,7 +980,7 @@ def check_sign_kernel(V, F, pos, dev, seed=2):
             ref = ns_sign_apply_plain(X)
             label = f"K4 {what} {dt}"
             if P is None or dt == torch.float64:
-                _compare(Y, ref, dt, label, errs, "ns_sign_apply")
+                compare_sign(Y, ref, label, errs)
                 n_cases += 1
             if P is None:
                 continue
@@ -1100,7 +1166,8 @@ def balloon_timings(V, F, mg, cur, qd, dev):
     shapes = bsr_shapes(hier, dev)
     signs = sign_shapes(X, dev)
     ker = {}
-    for name, rec in (("bsr_spmv", shapes[0]), ("ns_sign_apply", signs[0])):
+    for name, rec in (("bsr_spmv", shapes[0]), ("ns_sign_apply", signs[0]),
+                      *((f"ns_sign_apply {rec['shape']}", rec) for rec in signs)):
         ker[name] = {"kernel": rec["kernel_ms"], "plain": rec["plain_ms"],
                      "kernel_call": rec["kernel_call_ms"], "plain_call": rec["plain_call_ms"],
                      "bound": rec["bound_ms"], "bound_by": rec["bound_by"],
@@ -1213,15 +1280,34 @@ def bsr_shapes(hier, dev, reps=20, phase="phase 9"):
     return out
 
 
+def sign_bound(m, d, itemsize):
+    """(bytes, FLOP, bound ms, bound_by) of K4 on m d x d blocks: each block
+    read and Y written once; every iterate is a polynomial in the symmetric
+    block, so each of the 2 * steps + 1 products is symmetric: d(d+1)/2
+    entries of d MACs, at the card's f32 or f64 peak (f64: its tensor
+    cores')."""
+    from surface_multigrid_code_torch.ops.psd import NS_SCHEDULE
+
+    nbytes = 2 * m * d * d * itemsize
+    flops = m * (2 * len(NS_SCHEDULE) + 1) * d * d * (d + 1)
+    return (nbytes, flops, *bound_ms(nbytes, flops, f64=itemsize == 8))
+
+
+def cuda_core_bound_ms(nbytes, flops, itemsize):
+    """The bound of sign_bound's work on the CUDA cores alone (f64 at their
+    own peak, half the card's), which K4 runs on: a second reading."""
+    return bound_ms(nbytes, flops, peak=F64_CUDA_CORE_FLOPS_PER_S if itemsize == 8 else None)[0]
+
+
 def sign_shapes(X9, dev, reps=20, phase="phase 9"):
     """Phase 9: K4 at each (d, dtype) it runs in, on as many blocks as the
     step has faces: 9x9 f32 (the balloon's face Hessians at the step's
-    pose: the register body), 9x9 f64 and 18x18 (random symmetric) f32 and
-    f64 (the shared-memory body). Device time (profiler) and per-call time
-    (events) in two interleaved turns, the plain version beside the first
-    (9x9 f32) before and after them. Returns one record per case, that one
-    first."""
-    from surface_multigrid_code_torch.ops.psd import NS_SCHEDULE, ns_sign_apply, ns_sign_apply_plain
+    pose: the register body), 9x9 f64 (the same blocks) and 18x18 (random
+    symmetric) f32 and f64 (the tiled body). Device time (profiler) and
+    per-call time (events) of each in two interleaved turns, the plain
+    version of each before and after them. Returns one record per case,
+    9x9 f32 first."""
+    from surface_multigrid_code_torch.ops.psd import ns_sign_apply, ns_sign_apply_plain
 
     m = X9.shape[0]
     g = torch.Generator(device=dev).manual_seed(6)
@@ -1229,32 +1315,30 @@ def sign_shapes(X9, dev, reps=20, phase="phase 9"):
     cases = {"9x9 float32": X9, "9x9 float64": X9.double(), "18x18 float32": R.float(),
              "18x18 float64": R}
     fns = {k: (lambda X=X: ns_sign_apply(X)) for k, X in cases.items()}
-    fns["plain"] = lambda: ns_sign_apply_plain(X9)
-    first = next(iter(cases))
-    turns = ["plain", *cases, *cases, "plain"]
-    dev_ms, call_ms, burst = timed_turns(fns, turns, reps, dict.fromkeys(cases, "ns_sign_apply"),
-                                         "ns_sign_apply")
+    plains = {f"plain {k}": (lambda X=X: ns_sign_apply_plain(X)) for k, X in cases.items()}
+    turns = [*plains, *cases, *cases, *reversed(plains)]
+    dev_ms, call_ms, burst = timed_turns({**fns, **plains}, turns, reps,
+                                         dict.fromkeys(cases, "ns_sign_apply"), "ns_sign_apply")
     out = []
     for k, X in cases.items():
         d, isz = X.shape[1], X.element_size()
-        # every iterate is a polynomial in the symmetric block, so each of
-        # the 2 * steps + 1 products is symmetric: d(d+1)/2 entries of d MACs
-        flops = m * (2 * len(NS_SCHEDULE) + 1) * d * d * (d + 1)
-        bms, by = bound_ms(2 * m * d * d * isz, flops, f64=isz == 8)
+        nbytes, flops, bms, by = sign_bound(m, d, isz)
         rec = {"shape": k, "blocks": m, "d": d,
-               "bytes": 2 * m * d * d * isz, "flops": flops, "bound_ms": bms, "bound_by": by,
+               "bytes": nbytes, "flops": flops, "bound_ms": bms, "bound_by": by,
+               "cuda_core_bound_ms": cuda_core_bound_ms(nbytes, flops, isz),
                "kernel_turns_ms": dev_ms[k], "kernel_ms": float(np.median(dev_ms[k])),
                "kernel_call_ms": float(np.median(call_ms[k])), "library_ms": None,
-               "kernel_burst_ms": float(np.median(burst[k]))}
-        if k == first:
-            rec.update(plain_ms=float(np.median(dev_ms["plain"])),
-                       plain_call_ms=float(np.median(call_ms["plain"])))
+               "kernel_burst_ms": float(np.median(burst[k])),
+               "plain_ms": float(np.median(dev_ms[f"plain {k}"])),
+               "plain_call_ms": float(np.median(call_ms[f"plain {k}"]))}
+        rec["bound_share"] = bms / rec["kernel_ms"]
         out.append(rec)
         log(f"{phase}: ns_sign_apply {k} ({m} blocks): bound "
-            f"{1e3 * bms:.3f} us ({by}); device {[1e3 * t for t in dev_ms[k]]} us"
-            + (f", plain {[1e3 * t for t in dev_ms['plain']]} us" if k == first else "")
-            + f"; back to back {[1e3 * t for t in burst[k]]} us"
-            + f"; per call {1e3 * rec['kernel_call_ms']:.2f} us")
+            f"{1e3 * bms:.3f} us ({by}); device {[1e3 * t for t in dev_ms[k]]} us "
+            f"({100 * rec['bound_share']:.1f}% of the bound, "
+            f"{100 * rec['cuda_core_bound_ms'] / rec['kernel_ms']:.1f}% of the CUDA cores'), plain "
+            f"{[1e3 * t for t in dev_ms[f'plain {k}']]} us; back to back "
+            f"{[1e3 * t for t in burst[k]]} us; per call {1e3 * rec['kernel_call_ms']:.2f} us")
     return out
 
 
@@ -1799,9 +1883,8 @@ def large_balloon(dev):
                 n_cases += check_spmv(host_csr(S), f"phase 18 {name}_{lv}", dev, errs, rng,
                                       Cs=(3,))
     for Xd in (X, X.double()):
-        _compare(ns_sign_apply(Xd), ns_sign_apply_plain(Xd), Xd.dtype,
-                 f"K4 phase 18 {Xd.shape[0]} face Hessians 9x9 {Xd.dtype}", errs,
-                 "ns_sign_apply")
+        compare_sign(ns_sign_apply(Xd), ns_sign_apply_plain(Xd),
+                     f"K4 phase 18 {Xd.shape[0]} face Hessians 9x9 {Xd.dtype}", errs)
         n_cases += 1
     torch.cuda.synchronize(dev)
     log(f"phase 18: {n_cases} kernel-vs-plain cases agree: K3 on all {hier.n_levels} levels "
@@ -1809,7 +1892,9 @@ def large_balloon(dev):
         f"{[lv.A.nnz for lv in hier.levels]} blocks), K2 on every P/PT at C = 3, K4 on "
         f"{X.shape[0]} face blocks; max abs err {errs}")
     bshapes = bsr_shapes(types.SimpleNamespace(levels=hier.levels[:2]), dev, phase="phase 18")
-    signs = sign_shapes(X, dev, phase="phase 18")
+    # 3 calls a turn: at 505,664 blocks each plain version runs 25 batched
+    # products, the 18x18 float64 one the slowest
+    signs = sign_shapes(X, dev, reps=3, phase="phase 18")
     wall = time.perf_counter() - t_phase
     log(f"phase 18: {wall:.1f} s")
     return {"nv": int(nv), "nf": int(F.shape[0]), "levels": [int(lv.V.shape[0]) for lv in mg],
@@ -1826,8 +1911,17 @@ def large_balloon(dev):
             "bsr_shapes": bshapes, "sign_shapes": signs, "wall_s": wall}
 
 
+def k4_shape_counts():
+    """{"ns_sign_apply <d>x<d> <dtype>": launches} of each of K4's
+    instantiations (K4_SHAPES), from its wrapper's count by shape."""
+    from surface_multigrid_code_torch.ops.psd import ns_sign_apply
+
+    return {f"ns_sign_apply {k}": ns_sign_apply.launches_by_shape.get(k, 0) for k in K4_SHAPES}
+
+
 def kernel_counters():
-    """{kernel: () -> its wrapper's launch count} of every hand kernel."""
+    """{kernel: () -> its wrapper's launch count} of every hand kernel, and
+    of each of K4's instantiations."""
     from surface_multigrid_code_torch.ops.bsr_spmv import fused_bsr_spmv
     from surface_multigrid_code_torch.ops.psd import ns_sign_apply
     from surface_multigrid_code_torch.ops.spmv import fused_spmv
@@ -1839,6 +1933,7 @@ def kernel_counters():
         "bsr_spmv": lambda: fused_bsr_spmv.launches,
         "ns_sign_apply": lambda: ns_sign_apply.launches,
         "query_walk": lambda: query_walk.launches,
+        **{name: (lambda name=name: k4_shape_counts()[name]) for name in k4_shape_counts()},
     }
 
 
@@ -1860,6 +1955,7 @@ def reset_counts():
 
     fused_spmv.launches = fused_spmv.planes_launches = 0
     fused_bsr_spmv.launches = ns_sign_apply.launches = query_walk.launches = 0
+    ns_sign_apply.launches_by_shape = {}
     for f in plain_versions():
         f.calls = 0
 
@@ -1955,7 +2051,8 @@ def run_child(phase, state):
 def child(phase) -> int:
     """The body of ``--child phase``: phase 11 ("mcf"), phase 18
     ("balloon-large"), phase 20 ("ico9"), phase 21 ("k4-probes", from the
-    state on standard input) or phase 9 ("balloon", from the state)."""
+    state on standard input), phase 22 ("bending") or phase 9 ("balloon",
+    from the state)."""
     state = pickle.load(sys.stdin.buffer)
     dev = torch.device("cuda", 0)
     from surface_multigrid_code_torch import _build, mg_precompute
@@ -1971,12 +2068,421 @@ def child(phase) -> int:
         result = k4_probes(state["pos"], dev)
     elif phase == "balloon-large":
         result = large_balloon(dev)
+    elif phase == "bending":
+        result = bending_balloon(dev)
     else:
         Vb, Fb = read_obj(mesh_path(BALLOON_MESH))
         result = balloon_timings(Vb, Fb, mg_precompute(Vb, Fb, verbose=False), state["pos"],
                                  state["qdot"], dev)
     print(CHILD_RESULT + json.dumps(result), flush=True)
     return 0
+
+
+# ---------------------------------------------------------------- phase 22
+
+@contextlib.contextmanager
+def recorded_sign_inputs(seen):
+    """Within the block, the balloon steppers' psd_project_blocks keeps the
+    last blocks it was given of each size in ``seen`` ({d: [m, d, d]}) and
+    projects them as before (K4 on the card)."""
+    from surface_multigrid_code_torch.models import balloon
+
+    base = balloon.psd_project_blocks
+
+    def recording(H, *args, **kwargs):
+        seen[H.shape[1]] = H
+        return base(H, *args, **kwargs)
+
+    balloon.psd_project_blocks = recording
+    try:
+        yield
+    finally:
+        balloon.psd_project_blocks = base
+
+
+def bending_stepper(V, F, mg, dev, dtype=None):
+    """The bending shell (example 06's settings, ShellEnergy(bending=True)),
+    its mass and the BsrBalloonStepper built as run_balloon builds it (its
+    dtype by default: float32 on the card)."""
+    from surface_multigrid_code_torch.models.balloon import BsrBalloonStepper
+
+    d = balloon_defaults()
+    shell, M = balloon_shell(V, F, dev, bending=True)
+    stepper = BsrBalloonStepper(shell, M, mg, d["dt"], mg_tolerance=d["mg_tolerance"],
+                                n_newton=d["n_newton"], dtype=dtype or d["dtype"],
+                                coarsest_nv=d["coarsest_nv"])
+    return shell, M, stepper
+
+
+def bending_steps(V, F, stepper, n_steps, what):
+    """n_steps of a bending stepper from rest, run_balloon's loop
+    (inflation_force recomputed each step), its launches counted: every
+    state finite, a reject count per step, BENDING_K4_PER_STEP K4 launches a
+    step, half at 9x9 and half at 18x18 in the stepper's dtype, every 18x18
+    one on the tiled body. Then K4 held to its plain version at TOL on the
+    9x9 and 18x18 blocks of step 0's last Newton iteration. Returns
+    (positions, qdots, stats, host walls s, launches, errs)."""
+    from surface_multigrid_code_torch.models.balloon import inflation_force
+    from surface_multigrid_code_torch.ops.psd import (
+        ns_sign_apply,
+        ns_sign_apply_plain,
+        shape_key,
+    )
+
+    d = balloon_defaults()
+    cur, qd = V.copy(), np.zeros(V.size)
+    positions, qdots, stats, walls, seen = [], [], [], [], {}
+    reset_counts()
+    for k in range(n_steps):
+        fExt = inflation_force(cur, F, d["pressure"])
+        t0 = time.perf_counter()
+        with recorded_sign_inputs(seen) if k == 0 else contextlib.nullcontext():
+            cur, qd = stepper.step(cur, qd, fExt)
+        walls.append(time.perf_counter() - t0)
+        if k == 0:
+            blocks = dict(seen)
+        if cur.shape != V.shape or not np.isfinite(cur).all() or not np.isfinite(qd).all():
+            raise RuntimeError(f"{what} step {k}: bad shape or non-finite state")
+        if not isinstance(stepper.last_rejected, int):
+            raise RuntimeError(f"{what} step {k}: no reject count")
+        positions.append(cur)
+        qdots.append(qd)
+        stats.append({"last_rejected": stepper.last_rejected,
+                      "newton": [{key: r[key] for key in ("residuals", "converged", "alpha")}
+                                 for r in stepper.last_newton]})
+    launches = read_counts(what, ("spmv_fused_planes", "bsr_spmv", "ns_sign_apply"))
+    per = BENDING_K4_PER_STEP // 2 * n_steps
+    want = {"ns_sign_apply": 2 * per, f"ns_sign_apply {shape_key(9, stepper.dtype)}": per,
+            f"ns_sign_apply {shape_key(18, stepper.dtype)}": per}
+    if any(launches[name] != n for name, n in want.items()):
+        raise RuntimeError(f"{what}: K4 launches {launches}, want {want}")
+    errs = {}
+    for dim, H in sorted(blocks.items()):
+        X = scaled_blocks(H)
+        compare_sign(ns_sign_apply(X), ns_sign_apply_plain(X),
+                     f"{what}: K4 on step 0's last {X.shape[0]} {dim}x{dim} blocks", errs)
+    return positions, qdots, stats, walls, launches, errs
+
+
+def bending_reference() -> dict:
+    """The JAX package's float64 bending balloon on bunny_15K
+    (BENDING_REFERENCE, from tests/torch_bending_reference.py)."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), BENDING_REFERENCE)) as f:
+        return json.load(f)
+
+
+def held_to_reference(positions, rejects, refs, V, what):
+    """The card's float64 steps against the JAX package's (refs): max|disp|
+    and mean|disp| within BENDING_REF_GAP[k] relative, the same rejects.
+    Returns the gaps."""
+    gaps = []
+    for k, (P, rej, ref) in enumerate(zip(positions, rejects, refs)):
+        disp = np.abs(P - V)
+        gap = max(abs(float(disp.max()) - ref["max_disp"]) / ref["max_disp"],
+                  abs(float(disp.mean()) - ref["mean_disp"]) / ref["mean_disp"])
+        log(f"{what} step {k}: max|disp| {disp.max():.12f}, the JAX package's "
+            f"{ref['max_disp']:.12f}: gap {gap:.3e} (limit {BENDING_REF_GAP[k]}); rejects "
+            f"{rej}, the JAX package's {ref['rejects']}")
+        if not gap <= BENDING_REF_GAP[k] or rej != ref["rejects"]:
+            raise RuntimeError(f"{what} step {k}: gap {gap:.3e} to the JAX package's step "
+                               f"(limit {BENDING_REF_GAP[k]}), rejects {rej} against "
+                               f"{ref['rejects']}")
+        gaps.append(gap)
+    return gaps
+
+
+@contextlib.contextmanager
+def coarse_failures(stepper, fails):
+    """Within the block, appends to fails, for each refresh of the BSR
+    stepper's solver, whether its coarsest inverse is NaN (a Cholesky
+    factor that failed: that Newton iteration is rejected)."""
+    base = stepper.solver._coarse_inverse
+
+    def counted(*args):
+        inv = base(*args)
+        fails.append(bool(torch.isnan(inv).any()))
+        return inv
+
+    stepper.solver._coarse_inverse = counted
+    try:
+        yield
+    finally:
+        del stepper.solver._coarse_inverse
+
+
+def rest_rhs(stepper, V, fExt):
+    """The stepper's Newton right-hand side at rest, g = -dt (G + fExt) with
+    G the shell's gradient, evaluated in its dtype; returned in float64."""
+    from surface_multigrid_code_torch.models.shell import energy_and_gradient
+
+    x = torch.as_tensor(V.reshape(-1), device=stepper.device).to(stepper.dtype)
+    _, G = energy_and_gradient(stepper._energy, x)
+    f = torch.as_tensor(fExt, device=stepper.device).to(stepper.dtype)
+    return (-stepper.dt * (G + f)).double()
+
+
+def first_direction(stepper, V, fExt):
+    """qdot after the stepper's first Newton iteration from rest (alpha dx)."""
+    n = stepper.n_newton
+    stepper.n_newton = 1
+    try:
+        return stepper.step(V.copy(), np.zeros(V.size), fExt)[1]
+    finally:
+        stepper.n_newton = n
+
+
+def float32_at_rest(s32, s64, V, F, ref_rhs, what):
+    """float32 against float64 where both start from one state: the Newton
+    right-hand side at rest (its departure held within BENDING_RHS_FACTOR
+    of the JAX package's, ref_rhs) and the first Newton direction (within
+    BENDING_F32_DIR). Returns (departure, direction gap)."""
+    from surface_multigrid_code_torch.models.balloon import inflation_force
+
+    fExt = inflation_force(V, F, balloon_defaults()["pressure"])
+    g32, g64 = rest_rhs(s32, V, fExt), rest_rhs(s64, V, fExt)
+    rhs = float(torch.linalg.norm(g32 - g64) / torch.linalg.norm(g64))
+    q32, q64 = first_direction(s32, V, fExt), first_direction(s64, V, fExt)
+    gap = float(np.linalg.norm(q32 - q64) / np.linalg.norm(q64))
+    log(f"{what}: float32 Newton right-hand side at rest {rhs:.4e} from float64's (the JAX "
+        f"package's {ref_rhs:.4e}, limit {BENDING_RHS_FACTOR}x); first Newton direction "
+        f"{gap:.3e} from float64's (limit {BENDING_F32_DIR})")
+    if not rhs <= BENDING_RHS_FACTOR * ref_rhs:
+        raise RuntimeError(f"{what}: float32 right-hand side at rest {rhs:.4e} from float64's, "
+                           f"over {BENDING_RHS_FACTOR}x the JAX package's {ref_rhs:.4e}")
+    if not gap <= BENDING_F32_DIR:
+        raise RuntimeError(f"{what}: float32 first direction {gap:.3e} from float64's (limit "
+                           f"{BENDING_F32_DIR})")
+    return rhs, gap
+
+
+def float32_step_gaps(pos, ref, V, what, bar=None):
+    """A float32 step against the float64 step from the same state:
+    (relative max|disp| gap, held within bar when given; max position gap
+    / max|disp|, recorded)."""
+    disp, ref_disp = float(np.abs(pos - V).max()), float(np.abs(ref - V).max())
+    gaps = (abs(disp - ref_disp) / ref_disp, float(np.abs(pos - ref).max()) / ref_disp)
+    log(f"{what}: max|disp| float32 {disp:.9f}, float64 {ref_disp:.9f}: relative gap "
+        f"{gaps[0]:.3e} (limit {bar}); positions {gaps[1]:.3e} max|disp| (recorded)")
+    if bar is not None and not gaps[0] <= bar:
+        raise RuntimeError(f"{what}: float32 max|disp| {gaps[0]:.3e} off the float64 step's "
+                           f"(limit {bar})")
+    return gaps
+
+
+def device_bending_stepper(shell, M, mg_b, dtype):
+    """DeviceBalloonStepper with bending (its default smoother) on the block
+    hierarchy mg_b, in dtype (None: float32). Returns (stepper, set-up s)."""
+    from surface_multigrid_code_torch.models import balloon
+
+    d = balloon_defaults()
+    t0 = time.perf_counter()
+    stepper = balloon.DeviceBalloonStepper(shell, M, mg_b, d["dt"], dtype=dtype,
+                                           mg_tolerance=d["mg_tolerance"], n_newton=d["n_newton"])
+    torch.cuda.synchronize()
+    return stepper, time.perf_counter() - t0
+
+
+def device_bending_steps(V, F, stepper, n_steps, what):
+    """n_steps of a DeviceBalloonStepper from rest, counted: every state
+    finite. Returns (positions, walls s, rejects, launches)."""
+    from surface_multigrid_code_torch.models import balloon
+
+    d = balloon_defaults()
+    reset_counts()
+    cur, qd, positions, walls, rejects = V.copy(), np.zeros(V.size), [], [], []
+    for k in range(n_steps):
+        t0 = time.perf_counter()
+        cur, qd = stepper.step(cur, qd, balloon.inflation_force(cur, F, d["pressure"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if not np.isfinite(cur).all() or not np.isfinite(qd).all():
+            raise RuntimeError(f"{what} step {k}: non-finite state")
+        positions.append(cur)
+        rejects.append(stepper.last_rejected)
+    launches = read_counts(what, ("spmv_fused", "ns_sign_apply"))
+    return positions, walls, rejects, launches
+
+
+def bending_balloon(dev):
+    """Phase 22 (a process of its own, see run_child): the balloon with the
+    shell's bending term, the JAX package's ShellEnergy(bending=True) as its
+    tests call it, at example 06's settings on bunny_15K. BENDING_STEPS
+    BsrBalloonStepper steps from rest in float32 (bending_steps: finite, 20
+    K4 launches a step, half of them 18x18, K4 held to its plain version on
+    step 0's blocks); the step's phases, device busy time, idle share and
+    peak memory, and the K3 pattern's blocks with bending against without.
+    BENDING_REF_STEPS steps in float64 held to the JAX package's
+    (held_to_reference); float32 against float64 at rest and in the first
+    Newton direction (float32_at_rest), and step 0's max|disp| within
+    BENDING_F32_GAP. Then DeviceBalloonStepper with bending on the block
+    hierarchy (mg_precompute_block): its float64 step 0 held to the JAX
+    package's, float32 at rest as above, BENDING_DEVICE_STEPS float32
+    steps; then the midpoint-subdivided bunny: float32 at rest against
+    float64 and one step in each, finite, counted, K4 held to its plain
+    version, the whole step's gaps recorded. Returns its record."""
+    from surface_multigrid_code_torch import mg_precompute, mg_precompute_block
+    from surface_multigrid_code_torch.models import balloon
+    from surface_multigrid_code_torch.ops.bsr_spmv import fused_bsr_spmv
+    from surface_multigrid_code_torch.ops.psd import ns_sign_apply
+    from surface_multigrid_code_torch.ops.spmv import fused_spmv
+    from surface_multigrid_code_torch.utils.obj_io import read_obj
+    from surface_multigrid_code_torch.utils.paths import mesh_path
+    from surface_multigrid_code_torch.utils.synthetic import midpoint_subdivide
+
+    t_phase = time.perf_counter()
+    d = balloon_defaults()
+    ref = bending_reference()
+    V, F = read_obj(mesh_path(BALLOON_MESH))
+    if ref["nv"] != V.shape[0] or ref["nf"] != F.shape[0]:
+        raise RuntimeError(f"phase 22: {BENDING_REFERENCE} is of another mesh")
+    mg = mg_precompute(V, F, verbose=False)
+    t0 = time.perf_counter()
+    shell, M, stepper = bending_stepper(V, F, mg, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    edges = np.unique(np.sort(F[:, [0, 1, 1, 2, 2, 0]].reshape(-1, 2), axis=1), axis=0)
+    blocks = {"bending": int(stepper.nnz), "stretch": int(V.shape[0] + 2 * edges.shape[0])}
+    torch.cuda.reset_peak_memory_stats()
+    positions, qdots, stats, walls, launches, errs = bending_steps(
+        V, F, stepper, BENDING_STEPS, "phase 22")
+    peak = torch.cuda.max_memory_allocated()
+    disps = [float(np.abs(p - V).max()) for p in positions]
+    for k, st in enumerate(stats):
+        log(f"phase 22: step {k}: max|disp| {disps[k]:.6f}, rejects {st['last_rejected']}, "
+            f"residuals per Newton solve {[r['residuals'] for r in st['newton']]}, unconverged "
+            f"solves {sum(not r['converged'] for r in st['newton'])}, alphas "
+            f"{sorted(set(r['alpha'] for r in st['newton']))}, wall {walls[k]:.3f} s")
+
+    # one step by phase and one profiled, from step 0's state (later states
+    # freeze Newton iterations whose coarse factor fails)
+    cur, qd = positions[0], qdots[0]
+    fExt = balloon.inflation_force(cur, F, d["pressure"])
+    stepper.timed = True
+    stepper.step(cur, qd, fExt)
+    stepper.timed = False
+    phase_ms = {p: 1e3 * sum(r[p] for r in stepper.last_newton) for p in balloon.PHASES}
+    prof = checked_step(lambda: stepper.step(cur, qd, fExt),
+                        {"spmv_fused_kernel": lambda: fused_spmv.launches,
+                         "bsr_spmv_kernel": lambda: fused_bsr_spmv.launches,
+                         "ns_sign_apply": lambda: ns_sign_apply.launches},
+                        "phase 22 bending balloon step")
+    idle = 1.0 - prof["ms"] / prof["wall_ms"]
+    log(f"phase 22: bunny_15K with bending ({3 * V.shape[0]} DOFs; K3 pattern "
+        f"{blocks['bending']} blocks, {blocks['stretch']} without bending; set-up "
+        f"{setup_s:.2f} s): step walls {walls} s; step 1 by phase (ms, a sync per phase) "
+        f"{phase_ms}; profiled step: device busy {prof['ms']:.3f} ms over "
+        f"{prof['events']:.0f} device ops in {prof['wall_ms']:.3f} ms, idle share {idle:.4f}; "
+        f"peak device memory of the {BENDING_STEPS} steps {peak / 2**30:.3f} GiB")
+
+    # float64 on the card against the JAX package's record; float32 against it
+    _, _, stepper64 = bending_stepper(V, F, mg, dev, dtype=torch.float64)
+    fails = []
+    with coarse_failures(stepper64, fails):
+        pos64, _, stats64, walls64, launches64, errs64 = bending_steps(
+            V, F, stepper64, BENDING_REF_STEPS, "phase 22 float64")
+    n = d["n_newton"]
+    fails = [[i for i in range(n) if fails[k * n + i]] for k in range(BENDING_REF_STEPS)]
+    log(f"phase 22 float64: Newton iterations whose coarse Cholesky factor failed, per step: "
+        f"{fails}")
+    ref_gaps = held_to_reference(pos64, [st["last_rejected"] for st in stats64],
+                                 ref["jax_bsr"], V, "phase 22 float64")
+    direct = ref["jax_direct"]["max_disp"]
+    log(f"phase 22: step 0 against the JAX package's direct f64 step (max|disp| {direct:.9f}; "
+        f"not held: the JAX package's own multigrid step lies "
+        f"{ref['jax_bsr'][0]['gap_to_direct']:.4f} from it, ORACLE_GAP[0] {ORACLE_GAP[0]}): "
+        f"float64 {abs(np.abs(pos64[0] - V).max() - direct) / direct:.4f}, float32 "
+        f"{abs(disps[0] - direct) / direct:.4f}")
+    rest = float32_at_rest(stepper, stepper64, V, F,
+                           ref["float32_rest_rhs"]["bunny_15K"]["jax"], "phase 22")
+    del stepper, stepper64
+    f32_gaps = float32_step_gaps(positions[0], pos64[0], V, "phase 22 step 0", BENDING_F32_GAP)
+
+    # DeviceBalloonStepper with bending on the block hierarchy
+    t0 = time.perf_counter()
+    mg_b = mg_precompute_block(V, F, verbose=False)
+    t_mgb = time.perf_counter() - t0
+    dstep64, _ = device_bending_stepper(shell, M, mg_b, torch.float64)
+    dpos64, _, drej64, dlaunches64 = device_bending_steps(
+        V, F, dstep64, 1, "phase 22 DeviceBalloonStepper float64")
+    dref_gaps = held_to_reference(dpos64, drej64, [ref["jax_device"]], V,
+                                  "phase 22 DeviceBalloonStepper float64")
+    dstep, dsetup = device_bending_stepper(shell, M, mg_b, None)
+    drest = float32_at_rest(dstep, dstep64, V, F, ref["float32_rest_rhs"]["bunny_15K"]["jax"],
+                            "phase 22 DeviceBalloonStepper")
+    del dstep64
+    dpos, dwalls, drej, dlaunches = device_bending_steps(
+        V, F, dstep, BENDING_DEVICE_STEPS, "phase 22 DeviceBalloonStepper")
+    del dstep, mg_b
+    d_gaps = float32_step_gaps(dpos[0], dpos64[0], V, "phase 22 DeviceBalloonStepper step 0",
+                               BENDING_F32_GAP)
+    method_gap = (float(np.abs(dpos64[0] - pos64[0]).max()) / float(np.abs(pos64[0] - V).max()),
+                  float(np.abs(dpos[0] - positions[0]).max()) / disps[0])
+    log(f"phase 22: DeviceBalloonStepper with bending (mg_precompute_block {t_mgb:.2f} s, "
+        f"set-up {dsetup:.2f} s): max|disp| {[float(np.abs(p - V).max()) for p in dpos]}, "
+        f"rejects {drej} (float64 {drej64}), walls {dwalls} s; step 0 positions from the BSR "
+        f"stepper's: float64 {method_gap[0]:.4f} max|disp| (the JAX package's "
+        f"{ref['jax_device']['bsr_pos_gap']:.4f}), float32 {method_gap[1]:.4f}")
+
+    # the midpoint-subdivided bunny: at rest, then one step in float32 and float64
+    V2, F2, _ = midpoint_subdivide(V, F)
+    t0 = time.perf_counter()
+    mg2 = mg_precompute(V2, F2, verbose=False)
+    t_mg2 = time.perf_counter() - t0
+    _, _, stepper2 = bending_stepper(V2, F2, mg2, dev)
+    _, _, stepper2_64 = bending_stepper(V2, F2, mg2, dev, dtype=torch.float64)
+    sub_rest = float32_at_rest(stepper2, stepper2_64, V2, F2,
+                               ref["float32_rest_rhs"]["subdivided"]["jax"],
+                               "phase 22 subdivided")
+    pos2, _, stats2, walls2, launches2, errs2 = bending_steps(
+        V2, F2, stepper2, 1, "phase 22 subdivided")
+    del stepper2
+    pos2_64, _, _, _, launches2_64, errs2_64 = bending_steps(
+        V2, F2, stepper2_64, 1, "phase 22 subdivided float64")
+    del stepper2_64
+    log(f"phase 22: subdivided bunny |V| {V2.shape[0]} |F| {F2.shape[0]} with bending "
+        f"(mg_precompute {t_mg2:.2f} s): max|disp| {np.abs(pos2[0] - V2).max():.6f}, rejects "
+        f"{stats2[0]['last_rejected']}, residuals per Newton solve "
+        f"{[r['residuals'] for r in stats2[0]['newton']]}, alphas "
+        f"{[r['alpha'] for r in stats2[0]['newton']]}, wall {walls2[0]:.3f} s")
+    sub_gaps = float32_step_gaps(pos2[0], pos2_64[0], V2, "phase 22 subdivided step 0")
+    count = {}
+    for c in (launches, launches64, dlaunches, dlaunches64, launches2, launches2_64):
+        for name, n in c.items():
+            count[name] = count.get(name, 0) + n
+    for e in (errs64, errs2, errs2_64):
+        for name, v in e.items():
+            errs[name] = max(errs.get(name, 0.0), v)
+    wall = time.perf_counter() - t_phase
+    log(f"phase 22: K4 max abs err {errs}; {wall:.1f} s")
+    return {"nv": int(V.shape[0]), "nf": int(F.shape[0]), "k3_pattern_blocks": blocks,
+            "setup_s": setup_s, "max_disp": disps,
+            "rejects": [st["last_rejected"] for st in stats],
+            "residuals": [[r["residuals"] for r in st["newton"]] for st in stats],
+            "step_walls_s": walls, "float64": {
+                "max_disp": [float(np.abs(p - V).max()) for p in pos64],
+                "rejects": [st["last_rejected"] for st in stats64],
+                "reference_gaps": ref_gaps, "coarse_failures": fails, "walls_s": walls64},
+            "float32_rest_rhs": rest[0], "float32_first_direction": rest[1],
+            "float32_step0_gaps": f32_gaps,
+            "phase_ms": phase_ms, "device_ms": prof["ms"], "device_ops": prof["events"],
+            "profiled_step_ms": prof["wall_ms"], "idle_share": idle, "peak_bytes": int(peak),
+            "device_stepper": {"max_disp": [float(np.abs(p - V).max()) for p in dpos],
+                               "rejects": drej, "float64_rejects": drej64,
+                               "float64_reference_gap": dref_gaps[0],
+                               "float32_rest_rhs": drest[0],
+                               "float32_first_direction": drest[1],
+                               "float32_step0_gaps": d_gaps, "bsr_pos_gap": method_gap,
+                               "step_walls_s": dwalls, "setup_s": dsetup,
+                               "mg_precompute_block_s": t_mgb},
+            "subdiv": {"nv": int(V2.shape[0]), "nf": int(F2.shape[0]),
+                       "max_disp": float(np.abs(pos2[0] - V2).max()),
+                       "rejects": stats2[0]["last_rejected"], "float32_rest_rhs": sub_rest[0],
+                       "float32_first_direction": sub_rest[1], "float32_step0_gaps": sub_gaps,
+                       "wall_s": walls2[0]},
+            "launches": {"bsr_steps": launches, "float64_steps": launches64,
+                         "device_stepper": dlaunches, "device_stepper_float64": dlaunches64,
+                         "subdiv": launches2, "subdiv_float64": launches2_64},
+            "launch_totals": count, "errs": errs, "wall_s": wall}
 
 
 # ---------------------------------------------------------------- phases 19-20
@@ -2810,7 +3316,7 @@ def rank_counts():
     sync()
     return {"spmv_fused": fused_spmv.launches - fused_spmv.planes_launches,
             "spmv_fused_planes": fused_spmv.planes_launches,
-            "ns_sign_apply": ns_sign_apply.launches,
+            "ns_sign_apply": ns_sign_apply.launches, **k4_shape_counts(),
             "plain_calls": fused_spmv_plain.calls + ns_sign_apply_plain.calls}
 
 
@@ -2820,6 +3326,7 @@ def reset_rank_counts():
 
     sync()
     fused_spmv.launches = fused_spmv.planes_launches = ns_sign_apply.launches = 0
+    ns_sign_apply.launches_by_shape = {}
     fused_spmv_plain.calls = ns_sign_apply_plain.calls = 0
 
 
@@ -3826,6 +4333,13 @@ def main() -> int:
     for name, e in large["errs"].items():
         errs[name] = max(errs.get(name, 0.0), e)
 
+    # phase 22: the bending balloon, counted in a process of its own
+    bending = run_child("bending", {})
+    for name, n in bending["launch_totals"].items():
+        launches[name] += n
+    for name, e in bending["errs"].items():
+        errs[name] = max(errs.get(name, 0.0), e)
+
     # phase 13: queries (K5), counted, then K5 against its plain version
     # and the host walk, and timed
     Vq, Fq, Vqc, Fqc, qlog, t_dec = query_system(QUERY_DEPTH)
@@ -3916,6 +4430,8 @@ def main() -> int:
                     "smoother": "multicolor_gs"}))
     log(json.dumps({"balloon_large": large, "mesh": f"{BALLOON_MESH} midpoint-subdivided twice",
                     "dtype": "float32"}))
+    log(json.dumps({"bending_balloon": bending, "mesh": BALLOON_MESH, "dtype": "float32 (the "
+                    "direct steps: float64)"}))
     log(json.dumps({"mcf": {label: {**rec, **mcf_t[label]} for label, rec in mcf.items()},
                     "dtype": "float32", "tol": MCF_TOL, "exact_gap": MCF_EXACT_GAP,
                     "launches": mcf_counts, "k2_color_shape": k2_mcf}))
@@ -3935,11 +4451,14 @@ def main() -> int:
     # ms / plain_ms / library_ms: device time per call (profiler, L2 warm:
     # back-to-back calls on inputs that fit in L2), at ico7 level-0 A (K1,
     # K2), the bunny_15K level-0 block Hessian (K3) and its 31,604 face
-    # blocks (K4); call_ms / plain_call_ms: per call between CUDA events over
+    # blocks (K4; "ns_sign_apply <d>x<d> <dtype>": each of K4's
+    # instantiations on 31,604 blocks, phase 9's sign_shapes, the
+    # register body's 9x9 float32 being the "ns_sign_apply" row's shape);
+    # call_ms / plain_call_ms: per call between CUDA events over
     # back-to-back calls, host included; bound_ms: from this run's shapes at
-    # the H100's HBM and f32 peaks; launches: the counted paths together
-    # (phases 4-5, 10, 7, 12, 17, 18, 13 and 14, and every rank of phases
-    # 15 and 16). query_walk (K5): ms is the
+    # the H100's HBM and f32 (f64) peaks; launches: the counted paths
+    # together (phases 4-5, 10, 7, 12, 17, 18, 22, 13 and 14, and every rank
+    # of phases 15 and 16). query_walk (K5): ms is the
     # kernel's CUDA-event time at QUERY_CHECK_N f2c queries, plain_ms and
     # plain_call_ms the plain version's wall per call there, call_ms the
     # wall of query_fine_to_coarse_device (transfers included)
@@ -3950,6 +4469,7 @@ def main() -> int:
     # names: L2 warm except ico9's A_0 (bf16 values, staged x); bound_ms
     # at the TF32 and bf16 tensor-core peaks for the tensor-core kernels
     sources = {**{n: (SOURCE, rep) for n, rep in KERNELS.items()}, **BLOCK_KERNELS,
+               **{f"ns_sign_apply {k}": BLOCK_KERNELS["ns_sign_apply"] for k in K4_SHAPES},
                "query_walk": QUERY_KERNEL}
     rows = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -29,9 +29,11 @@ time per call from the profiler (kernel events only), L2 warm.
   (``chip_smoke.edge_blocks``, 9x9 and 18x18, f32 and f64): each version's
   and the plain version's least eigenvalue of (1/2) Y and largest distance
   to the exact f64 eigen-projection, and each version's distance to the
-  plain version (held at TOL only in f64); then the time per call on
-  bunny_15K's 31,604 face Hessians at the rest pose (9x9) and on as many
-  random symmetric 18x18 blocks, f32 and f64.
+  plain version (held at TOL only in f64); then, at each of
+  ``BLOCK_COUNTS`` (bunny_15K's faces, and those of bunny_15K subdivided
+  twice), the time per call on bunny_15K's face Hessians at the rest pose
+  (9x9, repeated to the count) and on as many random symmetric 18x18
+  blocks, f32 and f64, each beside its bound (``chip_smoke.sign_bound``).
 - ``query``: the f2c walk (f32) at each of ``chip_smoke.QUERY_COUNTS`` on
   phase 13's log (icosphere(7) to F/64, 161,280 records): each version's
   result against the plain version at ``QUERY_LIMITS`` (bit for bit),
@@ -65,6 +67,8 @@ from surface_multigrid_code_torch.utils import timing
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 EPI_CODE = {None: 0, "axpby": 1, "resid": 2, "add": 3, "resid_scaled": 4}
+# K4's block counts (psd): bunny_15K's faces and chip_smoke.LARGE_SIZE's
+BLOCK_COUNTS = (31_604, cs.LARGE_SIZE[1])
 
 
 def signatures(kernel, lanes):
@@ -111,6 +115,9 @@ def build(kernel, versions):
         _, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {versions[name]}:\n{err}")
+        for fn, rep in cs.ptxas_functions(err.splitlines()).items():
+            if EVENT.get(kernel, "query_walk") in fn:
+                cs.log(f"{name}: ptxas {fn}: {rep}")
         text = Path(versions[name]).read_text()
         lanes = VARIANT[kernel] in text
         if kernel == "query":
@@ -395,22 +402,38 @@ def psd_ab(libs, dev, reps):
     shell, _ = cs.balloon_shell(V, F, dev)
     x9 = torch.as_tensor(np.asarray(V)[F].reshape(-1, 9), device=dev, dtype=torch.float64)
     X9 = cs.scaled_blocks(shell.face_hess(x9, shell.abars.double()))
+    m = X9.shape[0]
     g = torch.Generator(device=dev).manual_seed(6)
-    R = cs.scaled_blocks(torch.randn((X9.shape[0], 18, 18), device=dev, generator=g,
-                                     dtype=torch.float64))
-    for label, X in (("face Hessians 9x9", X9), ("random 18x18", R)):
-        for dt in (torch.float32, torch.float64):
-            Xd = X.to(dt).contiguous()
-            runs = {name: psd_caller(lib, Xd, coeffs) for name, (lib, _) in libs.items()}
-            ref = ns_sign_apply_plain(Xd)
-            for name, run in runs.items():
-                cs._compare(run(), ref, dt, f"{name} {label} {dt}", {}, name)
-            warm = in_turns(runs, reps, EVENT["psd"])
-            rec = {"shape": f"{label} {str(dt)[6:]}", "blocks": Xd.shape[0],
-                   **{f"{name}_ms": float(np.median(t)) for name, t in warm.items()}}
-            recs.append(rec)
-            cs.log(f"{rec['shape']} ({Xd.shape[0]} blocks): device us per call, in turns: "
-                   f"{turns_line(warm)}")
+    for n in BLOCK_COUNTS:
+        R = cs.scaled_blocks(torch.randn((n, 18, 18), device=dev, generator=g,
+                                         dtype=torch.float64))
+        # the face blocks repeated to n (the work of a block does not depend on its values)
+        F9 = X9.repeat(-(-n // m), 1, 1)[:n].contiguous()
+        for label, X in (("face Hessians 9x9", F9), ("random 18x18", R)):
+            for dt in (torch.float32, torch.float64):
+                Xd = X.to(dt).contiguous()
+                runs = {name: psd_caller(lib, Xd, coeffs) for name, (lib, _) in libs.items()}
+                ref = ns_sign_apply_plain(Xd)
+                for name, run in runs.items():
+                    cs._compare(run(), ref, dt, f"{name} {label} {dt}", {}, name)
+                del ref
+                warm = in_turns(runs, reps, EVENT["psd"])
+                d = Xd.shape[1]
+                nbytes, flops, bms, by = cs.sign_bound(n, d, Xd.element_size())
+                cms = cs.cuda_core_bound_ms(nbytes, flops, Xd.element_size())
+                rec = {"shape": f"{label} {str(dt)[6:]}", "blocks": n, "bound_ms": bms,
+                       "bound_by": by, "cuda_core_bound_ms": cms,
+                       **{f"{name}_ms": float(np.median(t)) for name, t in warm.items()},
+                       **{f"{name}_turns_ms": t for name, t in warm.items()}}
+                recs.append(rec)
+                cs.log(f"{rec['shape']} ({n} blocks): bound {1e3 * bms:.3f} us ({by}); device "
+                       f"us per call, in turns: {turns_line(warm)}; share of the bound: "
+                       + ", ".join(f"{name} {100 * bms / rec[f'{name}_ms']:.1f}%"
+                                   for name in runs)
+                       + "; of the CUDA cores' bound "
+                       + f"{1e3 * cms:.3f} us: "
+                       + ", ".join(f"{name} {100 * cms / rec[f'{name}_ms']:.1f}%"
+                                   for name in runs))
     return recs
 
 

@@ -8,12 +8,13 @@ is X's PSD part. ``models/shell.psd_project_blocks`` scales and clamps
 around it.
 
 A CUDA tensor goes to the hand-written kernel K4 of ``csrc/psd.cu``, whose
-body follows from d and the type: 9x9 float32 blocks, the balloon's path,
-run one thread per block with the iterate's upper triangle in registers;
-9x9 float64 and 18x18 blocks run one thread per entry with the iterate in
-shared memory. The iterate starts from X's upper triangle in the first
-body and from all of X in the second, so X must be symmetric, as
-``psd_project_blocks`` makes it. A CPU tensor goes to
+body follows from d and the type: 9x9 float32 blocks, the
+balloon's stretch Hessians, run one thread per block with the iterate's
+upper triangle in registers; 9x9 float64 and 18x18 blocks (the bending
+Hessians) run the tiled body, a team of lanes per block, each lane an
+R x R tile of the iterate's upper triangle in registers, the iterate in
+shared memory. Both start the iterate from X's upper triangle, so X must
+be symmetric, as ``psd_project_blocks`` makes it. A CPU tensor goes to
 ``ns_sign_apply_plain``, the same arithmetic as batched ``torch.bmm``.
 Both run in the working type (f32 or f64) without TF32: the schedule's
 growth cubics amplify input rounding about 700-fold on small-eigenvalue
@@ -74,7 +75,8 @@ def ns_sign_apply(X: torch.Tensor, schedule=NS_SCHEDULE) -> torch.Tensor:
     module docstring.
 
     Returns a new tensor. Each kernel launch adds one to
-    ``ns_sign_apply.launches``.
+    ``ns_sign_apply.launches`` and to ``ns_sign_apply.launches_by_shape``
+    under ``shape_key(d, dtype)``.
     """
     if X.ndim != 3 or X.shape[1] != X.shape[2] or X.shape[1] not in BLOCK_SIZES:
         raise ValueError(f"X must be [m, d, d] with d in {BLOCK_SIZES}, not {tuple(X.shape)}")
@@ -100,9 +102,18 @@ def ns_sign_apply(X: torch.Tensor, schedule=NS_SCHEDULE) -> torch.Tensor:
                  ctypes.cast(coeffs, ctypes.c_void_p), len(schedule),
                  torch.cuda.current_stream().cuda_stream)
     ns_sign_apply.launches += 1
+    key = shape_key(X.shape[1], X.dtype)
+    ns_sign_apply.launches_by_shape[key] = ns_sign_apply.launches_by_shape.get(key, 0) + 1
     if err != 0:
         raise RuntimeError(f"ns_sign_apply launch failed: cudaError {err}")
     return Y
 
 
 ns_sign_apply.launches = 0
+ns_sign_apply.launches_by_shape = {}
+
+
+def shape_key(d: int, dtype: torch.dtype) -> str:
+    """The label of K4's (d, dtype) instantiation, e.g. ``"18x18 float32"``."""
+    return f"{d}x{d} {str(dtype).removeprefix('torch.')}"
+

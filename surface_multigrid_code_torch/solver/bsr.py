@@ -48,6 +48,7 @@ from surface_multigrid_code_torch.solver.galerkin import (
     DevicePlanLevel,
     GalerkinPlan,
     build_galerkin_plan,
+    cholesky_inverse_or_nan,
     device_plan,
     refresh_values,
 )
@@ -228,7 +229,9 @@ class BsrRefreshableSolver:
 
     def _coarse_inverse(self, pl_: DevicePlanLevel, blocks: torch.Tensor):
         """Dense 3nc x 3nc coarsest operator (+ the diagonal shift), then
-        its Cholesky inverse (refreshed operators are SPD)."""
+        its Cholesky inverse (refreshed operators are SPD; where rounding
+        leaves one that is not, the inverse is NaN, see
+        ``cholesky_inverse_or_nan``)."""
         nc = pl_.n
         rows = row_ids(pl_.indptr, pl_.nnz_out)
         k3 = torch.arange(3, device=blocks.device)
@@ -238,7 +241,7 @@ class BsrRefreshableSolver:
         dense.index_put_((r3, c3), blocks, accumulate=True)
         dense += self.coarsest_shift * torch.eye(3 * nc, dtype=blocks.dtype,
                                                  device=blocks.device)
-        return torch.cholesky_inverse(torch.linalg.cholesky(dense))
+        return cholesky_inverse_or_nan(dense)
 
     def refresh(self, B0_vals: torch.Tensor) -> BsrHierarchy:
         """The block hierarchy for finest-level values B0_vals [nnz_v, 3, 3]

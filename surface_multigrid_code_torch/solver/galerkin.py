@@ -289,6 +289,20 @@ def device_plan(plan: GalerkinPlan, pattern0: sp.csr_matrix, device,
     return out
 
 
+def cholesky_inverse_or_nan(dense: torch.Tensor) -> torch.Tensor:
+    """The inverse of the SPD ``dense`` by two triangular solves with its
+    Cholesky factor (the reference's ``cho_solve`` of the identity), or
+    all NaN where the factorization fails, as the reference's
+    ``jnp.linalg.cholesky`` leaves it: a refreshed coarsest operator that
+    rounding left indefinite (the bending balloon in float32) then gives a
+    non-finite direction, which the Newton loop rejects, and no exception.
+    No host sync: the failure is read on the device."""
+    L, info = torch.linalg.cholesky_ex(dense)
+    eye = torch.eye(dense.shape[0], dtype=dense.dtype, device=dense.device)
+    inv = torch.cholesky_solve(eye, L)
+    return torch.where(info == 0, inv, torch.full_like(inv, float("nan")))
+
+
 def refresh_values(plans: list[DevicePlanLevel], A0_vals: torch.Tensor):
     """All-level Galerkin value refresh on the plans' device (ports the JAX
     package's ``refresh_values``). ``A0_vals`` [nnz, *E] holds the finest

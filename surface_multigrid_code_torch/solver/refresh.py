@@ -42,6 +42,7 @@ from surface_multigrid_code_torch.ops.spmv import fused_spmv
 from surface_multigrid_code_torch.solver.galerkin import (
     GalerkinPlan,
     build_galerkin_plan,
+    cholesky_inverse_or_nan,
     device_plan,
     plan_pattern,
     refresh_values,
@@ -129,14 +130,15 @@ class RefreshableMGSolver:
 
     def _coarse_inverse(self, pl_, vals: torch.Tensor) -> torch.Tensor:
         """Dense coarsest operator (+ the diagonal shift), then its inverse
-        through the Cholesky factor (refreshed operators are SPD)."""
+        through the Cholesky factor (refreshed operators are SPD; where
+        rounding leaves one that is not, the inverse is NaN, see
+        ``cholesky_inverse_or_nan``)."""
         n = pl_.n
         dense = torch.zeros((n, n), dtype=vals.dtype, device=vals.device)
         dense.index_put_((row_ids(pl_.indptr, pl_.nnz_out), pl_.indices.long()), vals,
                          accumulate=True)
-        eye = torch.eye(n, dtype=vals.dtype, device=vals.device)
-        dense += self.coarsest_shift * eye
-        return torch.cholesky_solve(eye, torch.linalg.cholesky(dense))
+        dense += self.coarsest_shift * torch.eye(n, dtype=vals.dtype, device=vals.device)
+        return cholesky_inverse_or_nan(dense)
 
     def refresh(self, A0_vals: torch.Tensor) -> DeviceHierarchy:
         """The hierarchy for finest values A0_vals (canonical CSR order of

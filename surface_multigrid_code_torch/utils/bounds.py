@@ -2,8 +2,8 @@
 
 A bound is the larger of two times: the bytes the work must move (each
 input read once, each output written once) over the HBM rate, and its
-operations over the peak of the unit that does them: the CUDA cores for
-f32 and f64, the tensor cores (dense) for TF32 and bf16. The peaks are
+operations over the card's peak for their type: the CUDA cores' for f32,
+the tensor cores' (dense) for f64 (DMMA), TF32 and bf16. The peaks are
 one H100 SXM's, from NVIDIA's data sheet. ``bench.py``, ``chip_smoke.py``
 and ``probes/`` count with these functions, so their bounds agree.
 """
@@ -12,11 +12,13 @@ from __future__ import annotations
 
 import numpy as np
 
-# HBM3 bytes per second, and float32 and float64 operations per second
-# outside the tensor cores, of one H100 SXM.
+# HBM3 bytes per second, float32 operations per second outside the tensor
+# cores, and float64 operations per second: the card's peak (its tensor
+# cores) and its CUDA cores' alone, of one H100 SXM.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
-F64_FLOPS_PER_S = 34e12
+F64_FLOPS_PER_S = 67e12
+F64_CUDA_CORE_FLOPS_PER_S = 34e12
 # dense tensor-core peaks of one H100 SXM
 TF32_FLOPS_PER_S = 495e12
 BF16_FLOPS_PER_S = 989e12

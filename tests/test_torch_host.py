@@ -239,3 +239,27 @@ def test_galerkin_plan_slot_map_and_extension_bitwise():
     assert np.array_equal(csr_slot_map(A, rows, cols), jslot(A, rows, cols))
     with pytest.raises(ValueError):
         csr_slot_map(A, np.array([0]), np.array([A.shape[0] - 1]))
+
+
+def test_c_entry_points_match_their_ctypes_signatures():
+    """Every ``extern "C"`` entry point of ``csrc/*.cu`` has its ctypes
+    argument list in ``_build.SIGNATURES``, and no other name does: a
+    pointer is ``c_void_p``, a double ``c_double``, anything else
+    ``c_int`` (a pointer passed as an int would be cut to 32 bits). The
+    sources cannot be compiled here, so this is their only check off the
+    card."""
+    import ctypes
+    import re
+
+    from surface_multigrid_code_torch._build import SIGNATURES, SOURCES
+
+    found = {}
+    for src in SOURCES:
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            found[m.group(1)] = [
+                ctypes.c_void_p if "*" in p else
+                ctypes.c_double if p.strip().startswith("double") else ctypes.c_int
+                for p in m.group(2).split(",")]
+    assert found.keys() == SIGNATURES.keys()
+    for name, args in found.items():
+        assert SIGNATURES[name] == args, name

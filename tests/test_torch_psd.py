@@ -11,7 +11,10 @@ the JAX side, unpack its result and compare block by block:
 - the XLA version (float64) within 1e-12 max|Y|.
 
 Then ``psd_project_blocks`` against the JAX package's in float64, and its
-two safeguards: PSD blocks pass bitwise, indefinite ones come out PSD.
+two safeguards: PSD blocks pass bitwise, indefinite ones come out PSD;
+and on real shell Hessians (the 9x9 stretch and the 18x18 bending blocks
+of icosphere(2) at a deformed pose, where the projection clamps), in
+float32 through the Pallas kernel and in float64 through the XLA one.
 
 The plain version at the edges of the schedule's range (eigenvalues at
 +-1.5e-3, +-1e-2 and 1.4) against the exact eigen-projection
@@ -33,7 +36,12 @@ from surface_multigrid_code_tpu.ops.psd import (
     ns_sign_apply_packed_xla,
 )
 
-from surface_multigrid_code_torch.models.shell import psd_project_blocks
+from surface_multigrid_code_torch.models.balloon import face_hessians
+from surface_multigrid_code_torch.models.shell import (
+    ShellEnergy,
+    lame_parameters,
+    psd_project_blocks,
+)
 from surface_multigrid_code_torch.ops.psd import (
     NS_SCHEDULE,
     ns_sign_apply,
@@ -118,6 +126,40 @@ def test_psd_project_blocks_matches_jax(d):
     # clamped blocks keep their positive part: x^T Hp x >= x^T H x
     x = rng.standard_normal(d)
     assert (x @ got[0] @ x) >= (x @ H[0] @ x) - 1e-8
+
+
+def _shell_hessians():
+    """The 9x9 stretch and 18x18 bending Hessians (float64) of the example-06
+    shell with bending on icosphere(2), stretched anisotropically and
+    jittered (numpy seed): a pose where both kinds go indefinite."""
+    from surface_multigrid_code_torch.utils.synthetic import icosphere
+
+    V, F = icosphere(2)
+    al, be = lame_parameters(6e6, 0.5)
+    shell = ShellEnergy(V, F, 0.1, al, be, "neohookean", bending=True, device="cpu")
+    X = V * np.array([1.4, 0.7, 1.0]) + 0.03 * np.random.default_rng(11).standard_normal(V.shape)
+    x = torch.as_tensor(X.reshape(-1))
+    x9 = x.reshape(-1, 3)[shell.Ft].reshape(-1, 9)
+    return {h.shape[1]: h.numpy() for h in face_hessians(shell, x, x9, shell.abars,
+                                                        shell.bend_state())}
+
+
+@pytest.mark.parametrize("dtype, tol", [
+    # the Pallas kernel (interpret mode) and the plain version sum each
+    # product in another order; the growth cubics amplify that rounding
+    (np.float32, 1e-5),
+    (np.float64, 1e-12),
+])
+@pytest.mark.parametrize("d", [9, 18])
+def test_psd_project_blocks_on_shell_hessians_matches_jax(d, dtype, tol):
+    H = _shell_hessians()[d].astype(dtype)
+    got = psd_project_blocks(torch.as_tensor(H)).numpy()
+    ref = np.asarray(jpsd(jnp.asarray(H)))
+    assert got.dtype == ref.dtype == dtype
+    assert np.abs(got - ref).max() <= tol * np.abs(H).max()
+    clamped = (got != H).any(axis=(1, 2))
+    assert clamped.sum() > 0, "the pose must make the projection clamp"
+    assert np.array_equal(clamped, (ref != H).any(axis=(1, 2)))
 
 
 EDGE = np.array([-1.5e-3, 1.5e-3, -1e-2, 1e-2, 1.4])
