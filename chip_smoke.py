@@ -53,8 +53,12 @@ paths through their public entry points:
 - the probes (``surface_multigrid_code_torch/probes/``, the counterparts
   of ``benchmarks/probes/``' Pallas probes; on no path of the port):
   phase 20's process also runs the K1 probes (``bf16_values``,
-  ``staged_spmv``, ``band_spmv``) on ico9's A_0, then on ico7's, the band
-  also on ico6's; phase 21, a process of its own, runs the K4 probes
+  ``staged_spmv``: x in a ring, on the ring plan with the operator
+  streamed and staged and on a narrow ring with wide chunks,
+  ``band_spmv``: wgmma on the "skip" and "dense" tile lists, both band
+  types, nc = 128 and 3) on ico9's A_0, then on ico7's, the band also on
+  ico6's (ico9's band is skipped: its dense band alone takes 28 GB);
+  phase 21, a process of its own, runs the K4 probes
   (``psd_precision`` on random, bunny_15K face and edge blocks,
   ``psd_stages`` at 31,608 and 505,664 blocks). Each probe's kernels are
   counted around its measurement and held to their plain versions, and
@@ -2574,7 +2578,8 @@ def ico9_kernels(dev):
 
 def k1_probes(A9, dev):
     """Phase 20, after K1/K2: the three K1 probes (K1_PROBES: bf16 values,
-    x staged by chunk, the band on tensor cores) on ico9's A_0 (``A9``),
+    x in a shared-memory ring, the band's tile lists on tensor cores) on
+    ico9's A_0 (``A9``),
     then on ico7's, and the band also on ico6's (``bench.ico_operators``).
     Each operator's measurement runs with the probe kernels' counts set to
     0 just before it and read just after (its kernel must have launched,
@@ -2673,8 +2678,8 @@ def probe_rows(k1, k4):
     kernel its launches (summed over the counted measurements), its
     largest error against its plain version, and the times and bound of
     one shape: the random blocks (ns_sign_apply_tc), 31,608 blocks (the
-    copy), ico9's A_0 (bf16 values, staged x) and ico7's A_0 in bf16 at
-    nc = 128 (the band)."""
+    copy), ico9's A_0 (bf16 values, x in a ring) and ico7's A_0 in bf16 at
+    nc = 128 on the skip list (the band: the X cast and the product)."""
     prec, stages = k4["psd_precision"]["inputs"], k4["psd_stages"]["runs"]
     rows = {}
     for name, passes, variant in (("ns_sign_apply_tc_tf32", 1, "tf32"),

@@ -3,11 +3,12 @@
 
 Run from the repository root:
 
-    python3 kernel_ab.py spmv|bsr|psd|query NAME=FILE.cu [NAME=FILE.cu ...] [--reps N]
+    python3 kernel_ab.py spmv|bsr|psd|query|band|staged NAME=FILE.cu [NAME=FILE.cu ...] [--reps N]
 
 Each FILE is a version of one source of ``surface_multigrid_code_torch/csrc/``
 (``spmv.cu`` for K1/K2, ``bsr_spmv.cu`` for K3, ``psd.cu`` for K4,
-``query_walk.cu`` for K5): the
+``query_walk.cu`` for K5, ``spmv_probe.cu`` for the band and staged
+probe kernels): the
 checkout's, or one taken from an earlier commit with
 ``git show REV:surface_multigrid_code_torch/csrc/FILE > OUT``. Each is
 compiled by nvcc with the port's flags (and ``csrc/`` on the include path,
@@ -42,6 +43,22 @@ time per call from the profiler (kernel events only), L2 warm.
   queries sorted by start face, and the sort, the walk and the unpermute
   together (the JAX package's ``_query_chunked`` order), against the
   unsorted walk.
+- ``band``: ``band_spmv_tc`` on the RCM-ordered A_0 of ico7 and ico6
+  (``bench.ico_finest``), bf16 and f32 bands, nc = 128 and 3. A version
+  with tile lists (``const int* tile_ptr``) runs both lists ("skip",
+  "dense") of ``probes.band_spmv.band_layout``; an earlier one its dense
+  band of 256-row blocks, laid out as it was (``parent_band``). Each is
+  held to ``band_spmv_tc_plain`` within ``band_tolerance``, then timed by
+  CUDA events around back-to-back calls behind a spin
+  (``utils.timing.burst_ms``: a call's launches, the X cast pass
+  included), with the profiler's time of the cast and the product beside.
+- ``staged``: ``spmv_staged`` on the RCM-ordered A_0 of ico9 and ico7,
+  axpby. A version with the ring (``const void* table``) runs the ring
+  plan with the operator streamed and staged (``stage_a``), and a narrow
+  ring with wide chunks; an earlier one its double-buffered windows of
+  8,192 floats (``parent_staged``) and half the widest window. Each is
+  held to K1's plain version at ``chip_smoke.TOL`` x max|y|, then timed
+  by the profiler's mean launch time.
 
 A version whose SpMV entry points take no ``lanes`` argument (one thread
 per row, as in earlier commits) is called without it; a K5 version whose
@@ -86,15 +103,27 @@ def signatures(kernel, lanes):
                 "smg_spmv_fused_planes_f32": [_P] * 8 + [_D, _P, _I, _I] + ln + [_I, _P]}
     if kernel == "bsr":
         return {"smg_bsr_spmv_f32": [_P] * 8 + [_D, _I] + ln + [_I, _P]}
+    if kernel == "band":
+        from surface_multigrid_code_torch._build import SIGNATURES
+
+        return {"smg_band_spmv_tc": SIGNATURES["smg_band_spmv_tc"] if lanes else
+                [_P] * 4 + [_I] * 5 + [_P]}
+    if kernel == "staged":
+        from surface_multigrid_code_torch._build import SIGNATURES
+
+        return {"smg_spmv_staged_f32": SIGNATURES["smg_spmv_staged_f32"] if lanes else
+                [_P] * 8 + [_D, _P, _P] + [_I] * 6 + [_P]}
     sign = [_P, _P, _I, _I, _P, _I, _P]
     return {"smg_ns_sign_apply_f32": sign, "smg_ns_sign_apply_f64": sign}
 
 
 # the profiler's name of each kernel's launches
-EVENT = {"spmv": "spmv", "bsr": "bsr_spmv", "psd": "ns_sign_apply"}
+EVENT = {"spmv": "spmv", "bsr": "bsr_spmv", "psd": "ns_sign_apply", "band": "band_",
+         "staged": "spmv_staged"}
 # the text of a source whose entry points take the variant's argument
 VARIANT = {"spmv": "int lanes", "bsr": "int lanes", "psd": "int lanes",
-           "query": "const void* pack"}
+           "query": "const void* pack", "band": "const int* tile_ptr",
+           "staged": "const void* table"}
 
 
 def build(kernel, versions):
@@ -437,9 +466,192 @@ def psd_ab(libs, dev, reps):
     return recs
 
 
+PARENT_BAND_ROWS = 256  # the band kernel before tile lists: 256-row blocks
+PARENT_WINDOW = 8192  # the staged kernel before the ring: floats a buffer, two a CTA
+
+
+def parent_band(H, dev, dtype):
+    """The band as the kernel before tile lists took it: (band [blocks x
+    256, W], start [blocks] int32 (each block's least column), W (the
+    largest span rounded up to 32))."""
+    n = H.shape[0]
+    starts = np.arange(0, n, PARENT_BAND_ROWS)
+    offs = H.indptr[starts]
+    lo = np.minimum.reduceat(H.indices, offs)
+    hi = np.maximum.reduceat(H.indices, offs)
+    W = -(-int((hi - lo + 1).max()) // 32) * 32
+    rows = np.repeat(np.arange(n), np.diff(H.indptr))
+    band = torch.zeros((starts.size * PARENT_BAND_ROWS, W), dtype=dtype, device=dev)
+    band[torch.as_tensor(rows, device=dev),
+         torch.as_tensor(H.indices - lo[rows // PARENT_BAND_ROWS], device=dev)] = torch.as_tensor(
+        H.data.astype(np.float32), device=dev).to(dtype)
+    return band, torch.as_tensor(lo.astype(np.int32), device=dev), W
+
+
+def band_caller(lib, tiled, H, L, X, tiles, parent):
+    """One call of this library's band kernel: with tile lists on L's list
+    ``tiles``, else on the parent's layout (``parent_band``)."""
+    from surface_multigrid_code_torch.probes.band_spmv import BAND_K, band_n
+
+    nc = X.shape[1]
+    Y = torch.empty((H.shape[0], nc), dtype=torch.float32, device=X.device)
+    bf16 = int(L.band.dtype == torch.bfloat16)
+    if tiled:
+        T = L.lists[tiles]
+        xt = torch.empty(L.x_tiles * BAND_K * band_n(nc), dtype=L.band.dtype, device=X.device)
+        args = [T.tiles.data_ptr(), T.tile_ptr.data_ptr(), T.tile_k.data_ptr(),
+                L.start.data_ptr(), X.data_ptr(), xt.data_ptr(), Y.data_ptr(), L.n_rows,
+                L.blocks, L.x_tiles, X.shape[0], nc, bf16]
+    else:
+        band, start, W = parent
+        args = [band.data_ptr(), start.data_ptr(), X.data_ptr(), Y.data_ptr(), H.shape[0], W,
+                X.shape[0], nc, bf16]
+    return launcher(lib.smg_band_spmv_tc, args, Y)
+
+
+def band_ab(libs, dev, reps):
+    from surface_multigrid_code_torch import bench
+    from surface_multigrid_code_torch.probes import band_spmv as B
+
+    recs = []
+    for k in (7, 6):
+        H = bench.ico_finest(k)
+        X0 = torch.as_tensor(np.random.default_rng(0).standard_normal((H.shape[1], 128))
+                             .astype(np.float32), device=dev)
+        for dtype in B.BAND_TYPES:
+            L = B.band_layout(H, dev, dtype)
+            parent = (parent_band(H, dev, dtype) if not all(t for _, t in libs.values())
+                      else None)
+            for nc in B.NCS:
+                X = X0[:, :nc].contiguous()
+                ref = B.band_spmv_tc_plain(L, X)
+                saved = torch.backends.cuda.matmul.allow_tf32
+                torch.backends.cuda.matmul.allow_tf32 = False
+                try:
+                    mag = torch.matmul(L.band.view(L.blocks, B.BAND_ROWS, L.W).abs().float(),
+                                       B.windows(L, X.abs())).reshape(-1, nc)[:L.n_rows]
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = saved
+                tol = B.band_tolerance(L)
+                shape = f"ico{k} {str(dtype)[6:]} nc={nc}"
+                runs = {}
+                for name, (lib, tiled) in libs.items():
+                    for tiles in (B.TILE_LISTS if tiled else ("dense",)):
+                        run = band_caller(lib, tiled, H, L, X, tiles, parent)
+                        worst = float(((run() - ref).abs() / mag.clamp_min(1e-30)).max())
+                        if not worst <= tol:
+                            raise RuntimeError(f"{name} {tiles} {shape}: {worst:.3e} of |A||X| "
+                                               f"from the plain version (limit {tol:.3e})")
+                        runs[f"{name}/{tiles}" if tiled else name] = run
+                warm = timing.in_turns(runs, [*runs, *reversed(runs)],
+                                       lambda fn: timing.burst_ms(fn, reps))
+                parts = {name: {kern: timing.device_ms(fn, reps, kern)["ms"]
+                                for kern in (B.CAST, B.KERNEL)}
+                         for name, fn in runs.items() if "/" in name}
+                rec = {"shape": shape, "W": L.W, "tiles": {t: L.lists[t].n_tiles
+                                                           for t in B.TILE_LISTS},
+                       "parent_W": None if parent is None else parent[2],
+                       **{f"{name}_ms": float(np.median(t)) for name, t in warm.items()},
+                       **{f"{name}_turns_ms": t for name, t in warm.items()},
+                       **{f"{name}_parts_ms": v for name, v in parts.items()}}
+                recs.append(rec)
+                cs.log(f"band {shape} (W {L.W}, tiles {rec['tiles']}): device us per call "
+                       f"(events, back to back), in turns: {turns_line(warm)}; by kernel "
+                       + "; ".join(f"{n} cast {1e3 * v[B.CAST]:.2f} product "
+                                   f"{1e3 * v[B.KERNEL]:.2f}" for n, v in parts.items()))
+            del L, parent
+    return recs
+
+
+def parent_staged(H, dev):
+    """The staged kernel's plan before the ring: each chunk's window
+    [win_lo, win_hi] and the grid (CTAs of 512 threads, two buffers of
+    PARENT_WINDOW floats)."""
+    from surface_multigrid_code_torch.probes.staged_spmv import CHUNK_ROWS, chunk_windows
+
+    lo, hi = chunk_windows(H, CHUNK_ROWS)
+    p = torch.cuda.get_device_properties(dev)
+    per_sm = min(p.max_threads_per_multi_processor // 512,
+                 227 * 1024 // (2 * 4 * PARENT_WINDOW + 1024))
+    return (torch.as_tensor(lo.astype(np.int32), device=dev),
+            torch.as_tensor(hi.astype(np.int32), device=dev),
+            min(lo.size, p.multi_processor_count * per_sm))
+
+
+def staged_caller(lib, ring, A, v, plan, window):
+    """One call of this library's staged kernel: the ring's on ``plan``,
+    the parent's on its windows ``plan`` with buffers of ``window``
+    floats."""
+    from surface_multigrid_code_torch.ops.spmv import card_threads, launch_lanes
+    from surface_multigrid_code_torch.probes.bf16_values import ESCALE
+    from surface_multigrid_code_torch.probes.staged_spmv import CHUNK_ROWS, MAX_LANES
+
+    n = A.n_rows
+    y = torch.empty_like(v["u"])
+    head = [A.indptr.data_ptr(), A.indices.data_ptr(), A.data.data_ptr(), v["x"].data_ptr(),
+            y.data_ptr(), v["u"].data_ptr(), v["b"].data_ptr(), v["s"].data_ptr(), ESCALE]
+    if ring:
+        args = head + [plan.table.data_ptr(), plan.cta_ptr.data_ptr(), n, A.n_cols,
+                       int(A.indices.shape[0]), plan.chunk_rows, plan.ring, plan.a_cap,
+                       launch_lanes(min(A.lanes, MAX_LANES), n, card_threads(0)),
+                       int(plan.stage_a), plan.grid]
+    else:
+        lo, hi, grid = plan
+        args = head + [lo.data_ptr(), hi.data_ptr(), n, CHUNK_ROWS, lo.shape[0], window,
+                       min(A.lanes, MAX_LANES), grid]
+    return launcher(lib.smg_spmv_staged_f32, args, y)
+
+
+def staged_ab(libs, dev, reps):
+    from surface_multigrid_code_torch import bench
+    from surface_multigrid_code_torch.ops.sparse import csr_from_scipy
+    from surface_multigrid_code_torch.probes import staged_spmv as S
+    from surface_multigrid_code_torch.probes.bf16_values import ESCALE, jacobi_inputs
+
+    recs = []
+    for k in (9, 7):
+        H = bench.ico_finest(k)
+        A = csr_from_scipy(H, dev, torch.float32)
+        v = jacobi_inputs(H, dev, 0)
+        ref = S.spmv_staged_plain(A, None, v["x"], v["u"], v["b"], v["s"], ESCALE)
+        scale = float(ref.abs().max())
+        plans = {"ring": S.staged_plan(H, dev, stage_a=False),
+                 "ring_a": S.staged_plan(H, dev, stage_a=True)}
+        half = max(4, plans["ring"].window_floats["max"] // 2)
+        plans["narrow"] = S.staged_plan(H, dev, ring=1 << (half.bit_length() - 1))
+        parent = parent_staged(H, dev)
+        runs, checks = {}, {}
+        for name, (lib, ring) in libs.items():
+            cases = (plans.items() if ring else
+                     (("windows", PARENT_WINDOW), ("narrow", half // 4 * 4)))
+            for label, plan in cases:
+                run = staged_caller(lib, ring, A, v, plan if ring else parent,
+                                    None if ring else plan)
+                err = float((run() - ref).abs().max())
+                checks[f"{name}/{label}"] = err
+                if not err <= cs.TOL[torch.float32] * scale:
+                    raise RuntimeError(f"{name} {label} ico{k}: {err:.3e} from K1's plain "
+                                       f"version (limit {cs.TOL[torch.float32] * scale:.3e})")
+                if label != "narrow":
+                    runs[f"{name}/{label}" if ring else name] = run
+        warm = in_turns(runs, reps, EVENT["staged"])
+        rec = {"shape": f"ico{k} A_0 axpby", "rows": A.n_rows,
+               "wide": {n: p.wide for n, p in plans.items()},
+               "copy_bytes": {n: p.copy_bytes for n, p in plans.items()},
+               "grid": {n: p.grid for n, p in plans.items()}, "parent_grid": parent[2],
+               "max_abs_err": checks,
+               **{f"{name}_ms": float(np.median(t)) for name, t in warm.items()},
+               **{f"{name}_turns_ms": t for name, t in warm.items()}}
+        recs.append(rec)
+        cs.log(f"staged ico{k} A_0 ({A.n_rows} rows; wide chunks {rec['wide']}; ring copies "
+               f"{rec['copy_bytes']} B): held to the plain version {checks}; device us per "
+               f"call, in turns: {turns_line(warm)}")
+    return recs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("kernel", choices=("spmv", "bsr", "psd", "query"))
+    ap.add_argument("kernel", choices=("spmv", "bsr", "psd", "query", "band", "staged"))
     ap.add_argument("versions", nargs="+", help="NAME=FILE.cu")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
@@ -450,8 +662,8 @@ def main() -> int:
     card = cs.card_line()
     cs.log(card)
     libs = build(args.kernel, versions)
-    recs = {"spmv": spmv_ab, "bsr": bsr_ab, "psd": psd_ab,
-            "query": query_ab}[args.kernel](libs, dev, args.reps)
+    recs = {"spmv": spmv_ab, "bsr": bsr_ab, "psd": psd_ab, "query": query_ab, "band": band_ab,
+            "staged": staged_ab}[args.kernel](libs, dev, args.reps)
     cs.log(card)
     cs.log(json.dumps({f"{args.kernel}_ab": recs, "versions": versions, "reps": args.reps}))
     return 0

@@ -45,14 +45,15 @@ _K3_ARGS = [_p, _p, _p, _p, _p, _p, _p, _p, _d, _i, _i, _i, _p]
 # X, Y, m, d, schedule (host double [2 * steps]), steps, stream
 _K4_ARGS = [_p, _p, _i, _i, _p, _i, _p]
 # the probes' kernels (probes/): K4's copy stage (X, Y, m, stream); K4 on
-# tensor cores (X, Y, m, schedule, steps, passes, stream); x staged by
-# chunk (K1's arguments without rows, then win_lo, win_hi, n, chunk_rows,
-# n_chunks, window, lanes, grid, stream); the band (band, start, X, Y,
-# n_rows, W, n_x, nc, bf16, stream)
+# tensor cores (X, Y, m, schedule, steps, passes, stream); x in a ring
+# (K1's arguments without rows, then the plan's table and cta_ptr, n,
+# n_cols, nnz, chunk_rows, ring, a_cap, lanes, stage_a, grid, stream); the
+# band (tiles, tile_ptr, tile_k, start, X, xt, Y, n_rows, blocks, x_tiles,
+# n_x, nc, bf16, stream)
 _COPY_ARGS = [_p, _p, _i, _p]
 _TC_ARGS = [_p, _p, _i, _p, _i, _i, _p]
-_STAGED_ARGS = [_p] * 8 + [_d, _p, _p] + [_i] * 6 + [_p]
-_BAND_ARGS = [_p] * 4 + [_i] * 5 + [_p]
+_STAGED_ARGS = [_p] * 8 + [_d, _p, _p] + [_i] * 9 + [_p]
+_BAND_ARGS = [_p] * 7 + [_i] * 6 + [_p]
 # subset, fidx, dim_off, dim_dat, rec, pack, uv_src, uv_dst, fuv, BC, BF, FIdx, nq,
 # n_collapse, nvert, forward, threads, shared bytes, stream
 _K5_ARGS = [_p] * 12 + [_i] * 6 + [_p]

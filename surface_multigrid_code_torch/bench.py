@@ -128,6 +128,17 @@ def ico_system(V, F):
     return (M - 0.01 * cotmatrix(V, F)).tocsr(), np.asarray(M @ V[:, 0])
 
 
+def ico_finest(order: int):
+    """The finest operator of ``ico_operators(order)`` (A_0 in the RCM
+    ordering) alone, without the hierarchy."""
+    from surface_multigrid_code_torch.solver.ordering import finest_rcm
+    from surface_multigrid_code_torch.utils.synthetic import icosphere
+
+    A, _ = ico_system(*icosphere(order))
+    perm = finest_rcm(A)
+    return A[perm][:, perm].tocsr()
+
+
 def ico_operators(order: int, cache_dir=CACHE_DIR):
     """The headline's system on icosphere(order): (As, Ps, rhs, times):
     ``ico_hierarchy``, ``ico_system``, the Galerkin products P^T A P and

@@ -20,8 +20,19 @@ package and to numpy / scipy:
   (interpret mode) on the RCM-ordered icosphere(3) operator;
 - the bf16-valued plain SpMV against scipy on values rounded through
   ``jnp.bfloat16``;
+- the band's tile lists on ico3 and on a permuted ico3: "skip" lists
+  exactly the tiles that hold a nonzero, "dense" every tile, and a
+  tile-by-tile product of the listed tiles (the kernel's operands) equals
+  the plain version within ``band_tolerance``; the tile-major layout
+  unpacks bit for bit to the band;
 - the staged plan's windows against a brute force (``main`` also checks
-  the narrow plan, which has wide chunks);
+  the narrow plan, which has wide chunks); the ring plan against a numpy
+  simulation of the ring that applies the plan's copies: every chunk
+  that reads the ring finds its window there while it computes (the next
+  chunk's copy may land meanwhile), the gather gives K1's plain result at
+  ``TOL``, and the copies total x once plus one window a CTA; on an
+  operator whose second half is permuted the non-monotone chunks go wide
+  and the result stays the same;
 - each probe's ``main`` on the CPU: one JSON line with its fields.
 """
 
@@ -43,6 +54,7 @@ from surface_multigrid_code_tpu.ops.well import build_well_auto, well_apply
 
 from surface_multigrid_code_torch import bench
 from surface_multigrid_code_torch.ops.sparse import csr_from_scipy
+from surface_multigrid_code_torch.ops.spmv import fused_spmv_plain
 from surface_multigrid_code_torch.probes import (
     band_spmv,
     bf16_values,
@@ -79,6 +91,13 @@ def _scaled(m, seed):
 def ico3():
     """The RCM-ordered finest operator of ``bench.ico_operators(3)`` (f64)."""
     return bench.ico_operators(3, None)[0][0]
+
+
+def _permuted(H, seed, tail=0):
+    """H with its rows and columns permuted at random from ``tail`` on."""
+    perm = np.arange(H.shape[0])
+    perm[tail:] = tail + np.random.default_rng(seed).permutation(H.shape[0] - tail)
+    return sp.csr_matrix(H[perm][:, perm])
 
 
 @pytest.mark.parametrize("k", [1, 2, 3])
@@ -206,13 +225,166 @@ def test_staged_plan_windows(ico3, chunk_rows, window):
     H = ico3
     plan = staged_spmv.staged_plan(H, "cpu", chunk_rows, window)
     lo, hi = plan.win_lo.numpy(), plan.win_hi.numpy()
-    wide = 0
+    wide = plan.table.numpy()[:, 2]
     for c in range(plan.n_chunks):
         cols = H[c * chunk_rows:(c + 1) * chunk_rows].indices
         assert (lo[c], hi[c]) == ((cols.min(), cols.max()) if cols.size else (0, -1))
-        wide += hi[c] + 1 - (lo[c] & ~3) > window
-    assert plan.wide == wide
-    assert (wide > 0) == (window == 64)
+        if ((hi[c] + 4) & ~3) - (lo[c] & ~3) > window:  # a window the ring cannot hold
+            assert wide[c]
+    assert plan.wide == wide.sum()
+    assert (plan.wide > 0) == (window == 64)
+
+
+def _tiled_product(L, X, tiles):
+    """Y = A X tile by tile over the list ``tiles``, from the packed tiles
+    (unpacked) and X's tiles, in f64 with the kernel's operands: X rounded
+    to bf16 for the bf16 band; for the f32 band X rounded to TF32 (nearest,
+    ties away, as the cast pass does) and the values cut to TF32 (the low
+    13 bits dropped: the tensor cores read the stored f32 values as
+    TF32)."""
+    T = L.lists[tiles]
+    A = band_spmv.unpack_tiles(T.tiles, band_spmv.BAND_K).view(-1, band_spmv.BAND_ROWS,
+                                                                band_spmv.BAND_K)
+    if L.band.dtype == torch.bfloat16:
+        A, Xr = A.double(), X.to(torch.bfloat16).double()
+    else:
+        A = (A.view(torch.int32) & ~0x1FFF).view(torch.float32).double()
+        Xr = psd_precision.tf32_round(X).double()
+    Xp = torch.zeros((L.x_rows, X.shape[1]), dtype=torch.float64)
+    Xp[:X.shape[0]] = Xr
+    Y = torch.zeros((L.blocks, band_spmv.BAND_ROWS, X.shape[1]), dtype=torch.float64)
+    ptr, tk, start = T.tile_ptr.numpy(), T.tile_k.numpy(), L.start.numpy()
+    for r in range(L.blocks):
+        for t in range(ptr[r], ptr[r + 1]):
+            c0 = int(start[r]) + band_spmv.BAND_K * int(tk[t])
+            Y[r] += A[t] @ Xp[c0:c0 + band_spmv.BAND_K]
+    return Y.reshape(-1, X.shape[1])[:L.n_rows]
+
+
+@pytest.mark.parametrize("operator", ["ico3", "permuted"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_band_tile_lists(ico3, operator, dtype):
+    """"skip" lists exactly the tiles of the band that hold a nonzero,
+    "dense" every tile, each block's in window order; the tile-by-tile
+    product of either list equals the plain version within
+    ``band_tolerance`` of |A| |X|."""
+    H = ico3 if operator == "ico3" else _permuted(ico3, 41)
+    L = band_spmv.band_layout(H, "cpu", dtype)
+    assert (L.start.numpy() % band_spmv.BAND_K == 0).all()
+    nw = L.W // band_spmv.BAND_K
+    full = L.band.view(L.blocks, band_spmv.BAND_ROWS, nw, band_spmv.BAND_K).ne(0).any(3).any(1)
+    for name, want in (("skip", full), ("dense", torch.ones_like(full))):
+        T = L.lists[name]
+        ptr, tk = T.tile_ptr.numpy(), T.tile_k.numpy()
+        assert ptr[0] == 0 and ptr[-1] == T.n_tiles == T.tiles.shape[0]
+        for r in range(L.blocks):
+            assert list(tk[ptr[r]:ptr[r + 1]]) == list(np.flatnonzero(want[r].numpy()))
+    if operator == "permuted":
+        assert L.lists["skip"].n_tiles < L.lists["dense"].n_tiles
+    X = torch.as_tensor(np.random.default_rng(42).standard_normal((H.shape[1], 5))
+                        .astype(np.float32))
+    ref = band_spmv.band_spmv_tc_plain(L, X).double()
+    mag = torch.matmul(L.band.view(L.blocks, band_spmv.BAND_ROWS, L.W).abs().double(),
+                       band_spmv.windows(L, X.abs()).double()).reshape(-1, 5)[:L.n_rows]
+    for name in band_spmv.TILE_LISTS:
+        got = _tiled_product(L, X, name)
+        assert bool(((got - ref).abs() <= band_spmv.band_tolerance(L) * mag).all()), name
+
+
+@pytest.mark.parametrize("operator", ["ico3", "permuted"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_band_tiles_unpack_to_the_band(ico3, operator, dtype):
+    """The tile-major layout (wgmma's core-matrix order) unpacks bit for
+    bit to the band: every tile for "dense", the listed ones (the others
+    zero) for "skip"."""
+    H = ico3 if operator == "ico3" else _permuted(ico3, 43)
+    L = band_spmv.band_layout(H, "cpu", dtype)
+    dense = L.lists["dense"]
+    assert torch.equal(band_spmv.unpack_tiles(dense.tiles, L.W).view(torch.int16 if dtype ==
+                       torch.bfloat16 else torch.int32),
+                       L.band.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    skip = L.lists["skip"]
+    nw = L.W // band_spmv.BAND_K
+    ids = (np.repeat(np.arange(L.blocks), np.diff(skip.tile_ptr.numpy())) * nw
+           + skip.tile_k.numpy())
+    tiles = torch.zeros_like(dense.tiles)
+    tiles[torch.as_tensor(ids)] = skip.tiles
+    assert torch.equal(band_spmv.unpack_tiles(tiles, L.W), L.band)
+    # one core matrix: 8 rows of 16 bytes, K-major, at (k group, row group)
+    kc = band_spmv.core_k(dtype)
+    t = dense.tiles[0].view(band_spmv.BAND_K // kc, band_spmv.BAND_ROWS // 8, 8, kc)
+    assert torch.equal(t[1, 2], L.band[16:24, kc:2 * kc])
+
+
+def _simulate_ring(H, plan, v):
+    """The sweep as the kernel makes it with ``plan``: per CTA, the ring's
+    slots (the column each holds and its x) after each copy; a ring chunk
+    must find its window both after its own copy and after the next
+    chunk's (which may land while it computes). Returns y (f64)."""
+    x, u, b, s = (v[k].double().numpy() for k in ("x", "u", "b", "s"))
+    table, cta = plan.table.numpy(), plan.cta_ptr.numpy()
+    R, n, rows = plan.ring, H.shape[0], plan.chunk_rows
+    y = np.zeros(n)
+    for blk in range(plan.grid):
+        tags, vals = np.full(R, -1), np.zeros(R)
+
+        def apply(c):
+            cols = np.arange(table[c, 0], min(table[c, 1], H.shape[1]))
+            tags[cols % R], vals[cols % R] = cols, x[cols]
+
+        chunks = range(cta[blk], cta[blk + 1])
+        if len(chunks):
+            apply(chunks[0])
+        for k, c in enumerate(chunks):
+            sub = H[c * rows:(c + 1) * rows]
+            held = tags[sub.indices % R] == sub.indices
+            if k + 1 < len(chunks):
+                apply(chunks[k + 1])
+                held &= tags[sub.indices % R] == sub.indices
+            if not table[c, 2]:
+                assert held.all(), f"chunk {c} reads columns the ring does not hold"
+                xs = vals[sub.indices % R]
+            else:
+                xs = x[sub.indices]
+            Ax = np.add.reduceat(sub.data * xs, sub.indptr[:-1]) if sub.nnz else 0.0
+            Ax = np.where(np.diff(sub.indptr) > 0, Ax, 0.0)
+            r = slice(c * rows, c * rows + sub.shape[0])
+            y[r] = u[r] + (b[r] - Ax) * (s[r] * bf16_values.ESCALE)
+    return y
+
+
+@pytest.mark.parametrize("operator, chunk_rows, ring, grid, wide", [
+    ("ico3", 64, 256, 4, False), ("ico3", 32, 64, 7, True), ("ico3", 64, 8192, 3, False),
+    ("permuted", 32, 256, 5, True)])
+def test_staged_ring_plan_holds_every_window(ico3, operator, chunk_rows, ring, grid, wide):
+    """The ring plan on the host: a simulation of the ring with the plan's
+    copies gives K1's plain result at TOL x max|y|; the copies bring x
+    once plus one window a CTA (16-byte rounding aside); on the operator
+    whose second half is permuted, only the non-monotone chunks
+    go wide, and the result is the same."""
+    H = ico3 if operator == "ico3" else _permuted(ico3, 44, tail=ico3.shape[0] // 2)
+    plan = staged_spmv.staged_plan(H, "cpu", chunk_rows, ring, grid=grid)
+    assert plan.grid == grid
+    cta = plan.cta_ptr.numpy()
+    assert cta[0] == 0 and cta[-1] == plan.n_chunks and (np.diff(cta) >= 0).all()
+    v = bf16_values.jacobi_inputs(H, "cpu", seed=45)
+    A = csr_from_scipy(H, "cpu", torch.float32)
+    ref = fused_spmv_plain(A, v["x"], "axpby", b=v["b"], u=v["u"], s=v["s"],
+                           escale=bf16_values.ESCALE).double().numpy()
+    got = _simulate_ring(H, plan, v)
+    assert np.abs(got - ref).max() <= staged_spmv.TOL * np.abs(ref).max()
+    lo, hi = plan.win_lo.numpy(), plan.win_hi.numpy()
+    first = [c for b in range(plan.grid) for c in range(cta[b], cta[b + 1])[:1]]
+    once = H.shape[1] + sum(hi[c] + 4 - (lo[c] & ~3) for c in first) + 4 * plan.grid
+    assert (plan.wide > 0) == wide
+    flags = plan.table.numpy()[:, 2].astype(bool)
+    if operator == "ico3":
+        assert plan.copy_bytes // 4 <= once
+    else:
+        half = (H.shape[0] // 2) // chunk_rows
+        # the chunks just before the jump go wide too: the next copy would
+        # overwrite their windows
+        assert not flags[:half - 3].any() and flags[half + 1:].all()
 
 
 @pytest.mark.parametrize("probe, argv, fields", [
@@ -243,3 +415,16 @@ def test_probe_main_prints_one_json_line(probe, argv, fields, capsys):
         if probe is band_spmv:
             assert {(c["band"], c["nc"]) for c in run["cases"]} == {
                 (b, nc) for b in ("bfloat16", "float32") for nc in band_spmv.NCS}
+            assert set(run["tiles"]) == set(band_spmv.TILE_LISTS)
+            assert 0 < run["tiles"]["skip"] <= run["tiles"]["dense"]
+            assert set(run["check"]) == {f"{b} nc={nc} {t}" for b in ("bfloat16", "float32")
+                                         for nc in band_spmv.NCS for t in band_spmv.TILE_LISTS}
+            for c in run["cases"]:
+                for t in band_spmv.TILE_LISTS:
+                    assert c[f"{t}_tile_bound_ms"] > 0 and c[f"{t}_x_tile_bytes"] > 0
+                assert c["skip_tile_bound_ms"] <= c["dense_tile_bound_ms"]
+                assert c["ms"] is None and c["dense_ms"] is None
+        if probe is staged_spmv:
+            assert run["copy_bytes"] > 0 and run["wide_chunks"] == 0
+            assert run["check"]["narrow"]["wide_chunks"] > 0
+            assert {run["check"][k]["stage_a"] for k in ("plan", "plan_a")} == {False, True}
