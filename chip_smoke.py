@@ -59,8 +59,10 @@ paths through their public entry points:
   types, nc = 128 and 3) on ico9's A_0, then on ico7's, the band also on
   ico6's (ico9's band is skipped: its dense band alone takes 28 GB);
   phase 21, a process of its own, runs the K4 probes
-  (``psd_precision`` on random, bunny_15K face and edge blocks,
-  ``psd_stages`` at 31,608 and 505,664 blocks). Each probe's kernels are
+  (``psd_precision`` on random, bunny_15K face and edge blocks and on
+  the first 4,093 random blocks, a ragged count, ``ns_sign_apply_tc``
+  checked elementwise at 0, 1 and 2 steps; ``psd_stages`` at 31,608 and
+  505,664 blocks). Each probe's kernels are
   counted around its measurement and held to their plain versions, and
   each prints its JSON line;
 - persistence and the CLI: the ico7 and bunny_15K device hierarchies
@@ -177,6 +179,12 @@ K1_PROBES = (("bf16_values", (9, 7), "ico{k} A_0 axpby"),
 # Phase 21: psd_precision's edge set, 9x9 blocks with every eigenvalue in
 # EDGE_EIGS (as given, no scaling)
 PROBE_EDGE_BLOCKS = 4096
+# ... and its ragged set, the first TC_RAGGED random blocks (not a whole
+# number of ns_sign_apply_tc's chunks, groups of 4 or warps' blocks), and
+# the schedule lengths at which ns_sign_apply_tc is held to its plain
+# version entry by entry
+TC_RAGGED = 4_093
+TC_CHECK_STEPS = (0, 1, 2)
 # Balloon: example 06 at the run_balloon defaults; the oracle gaps allowed
 # between the multigrid and the direct f64 step (max|disp|, relative): the
 # tol-2e-1 multigrid direction is least accurate in the first step.
@@ -2633,11 +2641,12 @@ def k4_probes(pos, dev):
     """Phase 21 (a process of its own, see run_child): the two K4 probes.
     psd_precision on its 31,608 random blocks (timed), on bunny_15K's face
     Hessians at the balloon's step-3 pose ``pos`` (scaled and clamped as
-    the probe does) and on PROBE_EDGE_BLOCKS edge blocks (as given);
-    psd_stages at each of its block counts. Each measurement runs with
-    the probe kernels' counts set to 0 just before it and read just after;
-    then the kernels are held to their plain versions. Logs each probe's
-    JSON line; returns {probe: line}."""
+    the probe does), on PROBE_EDGE_BLOCKS edge blocks (as given) and on
+    the first TC_RAGGED random blocks, ns_sign_apply_tc held to its plain
+    version at TC_CHECK_STEPS; psd_stages at each of its block counts.
+    Each measurement runs with the probe kernels' counts set to 0 just
+    before it and read just after; then the kernels are held to their
+    plain versions. Logs each probe's JSON line; returns {probe: line}."""
     from surface_multigrid_code_torch.probes import psd_precision, psd_stages
     from surface_multigrid_code_torch.probes._common import device_record
     from surface_multigrid_code_torch.utils.obj_io import read_obj
@@ -2645,9 +2654,11 @@ def k4_probes(pos, dev):
 
     t0 = time.perf_counter()
     Vb, Fb = read_obj(mesh_path(BALLOON_MESH))
-    sets = {"random": (psd_precision.random_blocks(psd_precision.BLOCKS, 0), True),
+    random = psd_precision.random_blocks(psd_precision.BLOCKS, 0)
+    sets = {"random": (random, True),
             f"{BALLOON_MESH} face Hessians": (face_hessians(Vb, Fb, pos, dev), True),
-            "edge": (edge_blocks(PROBE_EDGE_BLOCKS, 9, 21)[0].astype(np.float32), False)}
+            "edge": (edge_blocks(PROBE_EDGE_BLOCKS, 9, 21)[0].astype(np.float32), False),
+            f"ragged {TC_RAGGED}": (random[:TC_RAGGED], True)}
     inputs = {}
     for label, (H, scale) in sets.items():
         p = psd_precision.prepare(H, dev, scale)
@@ -2655,7 +2666,7 @@ def k4_probes(pos, dev):
         rec = psd_precision.measure(p, dev, timed=label == "random")
         rec["launches"] = read_probe_counts(f"phase 21: psd_precision {label}",
                                             ("ns_sign_apply_tc_tf32", "ns_sign_apply_tc_3xtf32"))
-        rec["tc_checks"] = psd_precision.check_tc(p)
+        rec["tc_checks"] = psd_precision.check_tc(p, TC_CHECK_STEPS)
         inputs[label] = rec
     prec = {"probe": "psd_precision", "device": device_record(dev), "seed": 0, "inputs": inputs}
     log(json.dumps(prec))

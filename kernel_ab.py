@@ -3,12 +3,12 @@
 
 Run from the repository root:
 
-    python3 kernel_ab.py spmv|bsr|psd|query|band|staged NAME=FILE.cu [NAME=FILE.cu ...] [--reps N]
+    python3 kernel_ab.py spmv|bsr|psd|psd_tc|query|band|staged NAME=FILE.cu [NAME=FILE.cu ...] [--reps N]
 
 Each FILE is a version of one source of ``surface_multigrid_code_torch/csrc/``
 (``spmv.cu`` for K1/K2, ``bsr_spmv.cu`` for K3, ``psd.cu`` for K4,
-``query_walk.cu`` for K5, ``spmv_probe.cu`` for the band and staged
-probe kernels): the
+``psd_probe.cu`` for K4 on tensor cores, ``query_walk.cu`` for K5,
+``spmv_probe.cu`` for the band and staged probe kernels): the
 checkout's, or one taken from an earlier commit with
 ``git show REV:surface_multigrid_code_torch/csrc/FILE > OUT``. Each is
 compiled by nvcc with the port's flags (and ``csrc/`` on the include path,
@@ -35,6 +35,15 @@ time per call from the profiler (kernel events only), L2 warm.
   twice), the time per call on bunny_15K's face Hessians at the rest pose
   (9x9, repeated to the count) and on as many random symmetric 18x18
   blocks, f32 and f64, each beside its bound (``chip_smoke.sign_bound``).
+- ``psd_tc``: ``ns_sign_apply_tc`` on ``psd_precision``'s 31,608 random
+  blocks (``random_blocks(31_608, 0)``, scaled): each version held to
+  ``ns_sign_apply_tc_plain`` by ``psd_precision.check_tc`` (elementwise
+  at 0 and 1 steps within ``tc_tolerance``, the full schedule's metrics
+  within ``FULL_FACTOR``), then timed in turns at 1 and 3 passes on the
+  full schedule, with K4 (the checkout's ``ns_sign_apply``, f32) in the
+  same turns: the profiler's mean launch time, held to the back-to-back
+  event time (``utils.timing.checked_kernel_ms``), beside the function's
+  bound and the tile bounds of this design and of the 16^3 one before.
 - ``query``: the f2c walk (f32) at each of ``chip_smoke.QUERY_COUNTS`` on
   phase 13's log (icosphere(7) to F/64, 161,280 records): each version's
   result against the plain version at ``QUERY_LIMITS`` (bit for bit),
@@ -113,17 +122,22 @@ def signatures(kernel, lanes):
 
         return {"smg_spmv_staged_f32": SIGNATURES["smg_spmv_staged_f32"] if lanes else
                 [_P] * 8 + [_D, _P, _P] + [_I] * 6 + [_P]}
+    if kernel == "psd_tc":
+        from surface_multigrid_code_torch._build import SIGNATURES
+
+        return {"smg_ns_sign_apply_tc_f32": SIGNATURES["smg_ns_sign_apply_tc_f32"]}
     sign = [_P, _P, _I, _I, _P, _I, _P]
     return {"smg_ns_sign_apply_f32": sign, "smg_ns_sign_apply_f64": sign}
 
 
 # the profiler's name of each kernel's launches
 EVENT = {"spmv": "spmv", "bsr": "bsr_spmv", "psd": "ns_sign_apply", "band": "band_",
-         "staged": "spmv_staged"}
-# the text of a source whose entry points take the variant's argument
+         "staged": "spmv_staged", "psd_tc": "ns_sign_apply_tc"}
+# the text of a source whose entry points take the variant's argument (psd_tc:
+# none; the text marks this design's bulk-copied chunks)
 VARIANT = {"spmv": "int lanes", "bsr": "int lanes", "psd": "int lanes",
            "query": "const void* pack", "band": "const int* tile_ptr",
-           "staged": "const void* table"}
+           "staged": "const void* table", "psd_tc": "cp.async.bulk"}
 
 
 def build(kernel, versions):
@@ -466,6 +480,53 @@ def psd_ab(libs, dev, reps):
     return recs
 
 
+def psd_tc_caller(lib, X, schedule, passes):
+    """One launch of this library's ``ns_sign_apply_tc`` on the blocks X."""
+    Y = torch.empty_like(X)
+    coeffs = (ctypes.c_double * (2 * len(schedule)))(*(float(v) for ab in schedule for v in ab))
+    return launcher(lib.smg_ns_sign_apply_tc_f32,
+                    [X.data_ptr(), Y.data_ptr(), X.shape[0], ctypes.cast(coeffs, ctypes.c_void_p),
+                     len(schedule), passes], Y)
+
+
+def psd_tc_ab(libs, dev, reps):
+    from surface_multigrid_code_torch.ops.psd import NS_SCHEDULE, ns_sign_apply
+    from surface_multigrid_code_torch.probes import psd_precision as PP
+    from surface_multigrid_code_torch.utils.bounds import F32_FLOPS_PER_S, TF32_FLOPS_PER_S
+
+    p = PP.prepare(PP.random_blocks(PP.BLOCKS, 0), dev)
+    X, m, steps = p["X"], p["X"].shape[0], len(NS_SCHEDULE)
+    checks, runs = {}, {}
+    for name, (lib, _) in libs.items():
+        checks[name] = PP.check_tc(
+            p, fn=lambda Xv, schedule, passes, lib=lib: psd_tc_caller(lib, Xv, schedule, passes)())
+        cs.log(f"{name}: held to the plain version {json.dumps(checks[name])}")
+        for variant, passes in (("tf32", 1), ("3xtf32", 3)):
+            runs[f"{name} {variant}"] = (psd_tc_caller(lib, X, NS_SCHEDULE, passes),
+                                         EVENT["psd_tc"])
+    runs["K4 fp32"] = (lambda: ns_sign_apply(X), PP.K4_KERNEL)
+    warm = timing.in_turns(runs, [*runs, *reversed(runs)], lambda r: timing.checked_kernel_ms(
+        r[0], reps, r[1], "psd_tc")[0])
+    bounds = {variant: {"bound_ms": PP.sign_bound(m, steps, TF32_FLOPS_PER_S)[0],
+                        "tile_bound_ms": PP.tc_tile_bound_ms(m, steps, passes),
+                        "parent_tile_bound_ms": PP.tc_tile_bound_ms(m, steps, passes,
+                                                                    PP.PARENT_TILE_MMAS)}
+              for variant, passes in (("tf32", 1), ("3xtf32", 3))}
+    bounds["fp32"] = {"bound_ms": PP.sign_bound(m, steps, F32_FLOPS_PER_S)[0]}
+    rec = {"blocks": m, "bounds": bounds, "checks": checks,
+           **{f"{name}_ms": float(np.median(t)) for name, t in warm.items()},
+           **{f"{name}_turns_ms": t for name, t in warm.items()}}
+    rec["shares"] = shares = {name: {k: b / rec[f"{name}_ms"]
+                                     for k, b in bounds[name.split()[-1]].items()}
+                              for name in runs}
+    cs.log(f"{m} random blocks, {steps} steps: bounds {json.dumps(bounds)}; device us per call, "
+           f"in turns: {turns_line(warm)}; share of the function's bound, of this design's "
+           "tiles' and of the 16^3 tiles': "
+           + ", ".join(f"{name} " + " / ".join(f"{100 * v:.1f}%" for v in sh.values())
+                       for name, sh in shares.items()))
+    return [rec]
+
+
 PARENT_BAND_ROWS = 256  # the band kernel before tile lists: 256-row blocks
 PARENT_WINDOW = 8192  # the staged kernel before the ring: floats a buffer, two a CTA
 
@@ -651,7 +712,7 @@ def staged_ab(libs, dev, reps):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("kernel", choices=("spmv", "bsr", "psd", "query", "band", "staged"))
+    ap.add_argument("kernel", choices=("spmv", "bsr", "psd", "psd_tc", "query", "band", "staged"))
     ap.add_argument("versions", nargs="+", help="NAME=FILE.cu")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
@@ -662,8 +723,8 @@ def main() -> int:
     card = cs.card_line()
     cs.log(card)
     libs = build(args.kernel, versions)
-    recs = {"spmv": spmv_ab, "bsr": bsr_ab, "psd": psd_ab, "query": query_ab, "band": band_ab,
-            "staged": staged_ab}[args.kernel](libs, dev, args.reps)
+    recs = {"spmv": spmv_ab, "bsr": bsr_ab, "psd": psd_ab, "psd_tc": psd_tc_ab, "query": query_ab,
+            "band": band_ab, "staged": staged_ab}[args.kernel](libs, dev, args.reps)
     cs.log(card)
     cs.log(json.dumps({f"{args.kernel}_ab": recs, "versions": versions, "reps": args.reps}))
     return 0

@@ -24,10 +24,12 @@ standard normal, symmetrised, from ``--seed``.
 ``ns_sign_apply_tc`` (``csrc/psd_probe.cu``) is held to its plain
 version, ``ns_sign_apply_tc_plain`` (batched ``torch.bmm`` with TF32 off on
 operands rounded to TF32 in software, split the same way): elementwise on
-schedules of 0 and 1 steps within ``tc_tolerance``, and on the full
-schedule by ``min_eig_rel`` and ``reldiff_vs_f64`` within
-``FULL_FACTOR`` of the plain version's own (the growth cubics amplify
-rounding ~700-fold there, so entries are not comparable).
+schedules of 0 and 1 steps (``check_tc``'s ``steps``) within
+``tc_tolerance``, and on the full schedule by ``min_eig_rel`` and
+``reldiff_vs_f64`` within ``FULL_FACTOR`` of the plain version's own (the
+growth cubics amplify rounding ~700-fold there, so entries are not
+comparable). Beside the function's bound, ``measure`` gives the bound of
+the tensor-core tiles the kernel issues (``tc_tile_bound_ms``).
 
     python -m surface_multigrid_code_torch.probes.psd_precision [--device cpu] [--blocks N]
 """
@@ -54,6 +56,11 @@ F32_U = 2.0**-24
 OPERAND_U = {1: 2.0**-11, 3: 2.0**-22}
 FULL_FACTOR = 10.0
 K4_KERNEL, TC_KERNEL = "ns_sign_apply", "ns_sign_apply_tc_kernel"  # as the profiler names them
+# mma.sync.m16n8k8 a product a pass: the kernel's (columns 0-7 and column 8,
+# K 0-7; the ninth K term on the CUDA cores) and the zero-padded 16^3 tiles
+# of the design before it (two 8-column halves, two 8-deep halves)
+TILE_MMAS, PARENT_TILE_MMAS = 2, 4
+MMA_FLOP = 2 * 16 * 8 * 8
 FULL_FLOOR = 1e-6
 VARIANTS = {  # name: (route, cut steps or passes)
     "fp32": ("k4", 0), "fp32-trunc1": ("k4", 1), "fp32-trunc2": ("k4", 2),
@@ -118,6 +125,8 @@ def ns_sign_apply_tc(X: torch.Tensor, schedule=NS_SCHEDULE, passes: int = 3) -> 
         raise TypeError(f"ns_sign_apply_tc runs on CUDA or CPU tensors, not {X.device}")
     if not X.is_contiguous():
         raise ValueError("X must be contiguous")
+    if X.data_ptr() % 16:
+        raise ValueError("X must be 16-byte aligned (the kernel reads it by bulk copies)")
     if X.shape[0] >= 2**31:
         raise ValueError("too many blocks for one launch")
     lib = load_library()
@@ -157,6 +166,15 @@ def tc_tolerance(steps: int, passes: int) -> float:
       roundoff (``OPERAND_U``: 2^-11 in one pass, 2^-22 split in three).
     """
     return (2 * steps + 1) * 32 * F32_U + 8 * steps * OPERAND_U[passes]
+
+
+def tc_tile_bound_ms(m: int, steps: int, passes: int, mmas: int = TILE_MMAS) -> float:
+    """The least time of the tensor-core tiles ``ns_sign_apply_tc``
+    issues for m blocks on a schedule of ``steps`` steps, at the TF32
+    peak: ``mmas`` m16n8k8 a product a pass (``PARENT_TILE_MMAS`` for the
+    16^3 design before it) of ``MMA_FLOP``, ``passes`` passes, 2 steps + 1
+    products a block."""
+    return 1e3 * mmas * MMA_FLOP * passes * (2 * steps + 1) * m / C.TF32_FLOPS_PER_S
 
 
 def random_blocks(m: int, seed: int) -> np.ndarray:
@@ -219,28 +237,29 @@ def metrics_of(Y: torch.Tensor, p: dict) -> dict:
     return projection_metrics(Y.double().cpu().numpy(), p["H"], p["s"], p["ref"])
 
 
-def check_tc(p: dict) -> dict:
-    """``ns_sign_apply_tc`` against ``ns_sign_apply_tc_plain`` on the
-    prepared blocks, both pass counts: elementwise at 0 and 1 steps within
+def check_tc(p: dict, steps=(0, 1), fn=None) -> dict:
+    """``ns_sign_apply_tc`` (or ``fn(X, schedule, passes)``, a version of
+    it) against ``ns_sign_apply_tc_plain`` on the prepared blocks, both
+    pass counts: elementwise at each schedule length of ``steps`` within
     ``tc_tolerance``; on the full schedule the kernel's ``min_eig_rel``
     and ``reldiff_vs_f64`` within ``FULL_FACTOR`` of the plain version's
     (plus ``FULL_FLOOR``). Raises on a disagreement; returns the readings."""
     X = p["X"]
+    fn = fn or ns_sign_apply_tc
     out = {}
     for passes in PASSES:
-        for steps in (0, 1):
-            schedule = NS_SCHEDULE[:steps]
-            Y = ns_sign_apply_tc(X, schedule, passes)
+        for n in steps:
+            schedule = NS_SCHEDULE[:n]
+            Y = fn(X, schedule, passes)
             ref_y = ns_sign_apply_tc_plain(X, schedule, passes)
             err = float((Y - ref_y).abs().max())
             scale = max(1.0, float(ref_y.abs().max()))
-            tol = tc_tolerance(steps, passes)
-            out[f"passes{passes}_steps{steps}"] = {"max_abs_err": err, "scale": scale,
-                                                   "tol": tol}
+            tol = tc_tolerance(n, passes)
+            out[f"passes{passes}_steps{n}"] = {"max_abs_err": err, "scale": scale, "tol": tol}
             if not err <= tol * scale:
-                raise RuntimeError(f"ns_sign_apply_tc ({passes} passes, {steps} steps) is "
+                raise RuntimeError(f"ns_sign_apply_tc ({passes} passes, {n} steps) is "
                                    f"{err:.3e} from its plain version (limit {tol * scale:.3e})")
-        got = metrics_of(ns_sign_apply_tc(X, NS_SCHEDULE, passes), p)
+        got = metrics_of(fn(X, NS_SCHEDULE, passes), p)
         plain = metrics_of(ns_sign_apply_tc_plain(X, NS_SCHEDULE, passes), p)
         out[f"passes{passes}_full"] = {"kernel": got, "plain": plain}
         if not (got["reldiff_vs_f64"] <= FULL_FACTOR * plain["reldiff_vs_f64"] + FULL_FLOOR
@@ -256,7 +275,8 @@ def measure(p: dict, dev: torch.device, timed: bool = True) -> dict:
     held to the f64 eigen-projection; with ``timed`` each variant's device
     time beside its bound, in turns (every variant, the tensor-core
     variants' plain versions, every variant in reverse; back-to-back
-    calls, L2 warm)."""
+    calls, L2 warm); the tensor-core variants also the bound of their
+    tiles (``tc_tile_bound_ms``) and that of the 16^3 design before."""
     X, m = p["X"], p["H"].shape[0]
     rec = {"blocks": m, "scaled": p["scaled"], "l2": "warm", "variants": {}}
     fns = {}
@@ -269,6 +289,10 @@ def measure(p: dict, dev: torch.device, timed: bool = True) -> dict:
         if timed:
             peak = C.F32_FLOPS_PER_S if route == "k4" else C.TF32_FLOPS_PER_S
             r["bound_ms"], r["bound_by"] = sign_bound(m, variant_steps(name), peak)
+            if route == "tc":
+                r["tile_bound_ms"] = tc_tile_bound_ms(m, len(NS_SCHEDULE), k)
+                r["parent_tile_bound_ms"] = tc_tile_bound_ms(m, len(NS_SCHEDULE), k,
+                                                             PARENT_TILE_MMAS)
     if not timed:
         return rec
     kernels = {name: TC_KERNEL if route == "tc" else K4_KERNEL
@@ -281,6 +305,7 @@ def measure(p: dict, dev: torch.device, timed: bool = True) -> dict:
         r["ms"], r["call_ms"], r["turns_ms"] = (t[name][k] for k in ("ms", "call_ms", "turns_ms"))
         r["bound_share"] = C.share(r["bound_ms"], r["ms"])
         if route == "tc":
+            r["tile_bound_share"] = C.share(r["tile_bound_ms"], r["ms"])
             r["plain_ms"], r["plain_call_ms"] = (t[f"plain {name}"][k] for k in ("ms", "call_ms"))
     return rec
 

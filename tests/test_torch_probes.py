@@ -172,6 +172,52 @@ def test_tc_plain_checks_on_the_cpu():
     assert v["tf32"]["reldiff_vs_f64"] > v["3xtf32"]["reldiff_vs_f64"]
 
 
+def test_tc_plain_ragged_matches_pallas():
+    """At a block count that fills no whole tile, group of 4 or warp's
+    blocks (37), the 3-pass plain version against the Pallas kernel as at
+    56."""
+    X = _scaled(37, seed=34)
+    ref = _unpack(np.asarray(ns_sign_apply_packed(jnp.asarray(_pack(X)))), 37, 9)
+    got = psd_precision.ns_sign_apply_tc(torch.as_tensor(X), JSCHEDULE, 3).numpy()
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("passes, mmas, flop, us", [
+    (1, psd_precision.TILE_MMAS, 3_236_659_200, 6.538705),
+    (3, psd_precision.TILE_MMAS, 9_709_977_600, 19.616116),
+    (1, psd_precision.PARENT_TILE_MMAS, 6_473_318_400, 13.077411),
+    (3, psd_precision.PARENT_TILE_MMAS, 19_419_955_200, 39.232233),
+])
+def test_tc_tile_bound(passes, mmas, flop, us):
+    """The tile bound at the probe's 31,608 blocks and 12 steps (PERF.md
+    §6 row 5): 2 m16n8k8 a product a pass, 4 in the 16^3 design before."""
+    m, steps = psd_precision.BLOCKS, len(JSCHEDULE)
+    assert (m, steps) == (31_608, 12)
+    assert mmas * psd_precision.MMA_FLOP * passes * (2 * steps + 1) * m == flop
+    got = psd_precision.tc_tile_bound_ms(m, steps, passes, mmas)
+    assert abs(1e3 * got - us) <= 1e-6
+    assert got == pytest.approx(1e3 * flop / psd_precision.C.TF32_FLOPS_PER_S, rel=1e-12)
+
+
+def test_check_tc_holds_a_version_to_the_plain_one():
+    """``check_tc`` at 0, 1 and 2 steps passes the plain version given as
+    the version and refuses one an entry off by twice the limit."""
+    p = psd_precision.prepare(psd_precision.random_blocks(37, 35), torch.device("cpu"))
+    rec = psd_precision.check_tc(p, (0, 1, 2), fn=psd_precision.ns_sign_apply_tc_plain)
+    assert {k for k in rec if "steps" in k} == {
+        f"passes{q}_steps{s}" for q in psd_precision.PASSES for s in (0, 1, 2)}
+    assert all(r["max_abs_err"] == 0.0 for k, r in rec.items() if "steps" in k)
+
+    def off(X, schedule, passes):
+        Y = psd_precision.ns_sign_apply_tc_plain(X, schedule, passes).clone()
+        Y[-1, 8, 8] += 2 * psd_precision.tc_tolerance(len(schedule), passes) * max(
+            1.0, float(Y.abs().max()))
+        return Y
+
+    with pytest.raises(RuntimeError, match="from its plain version"):
+        psd_precision.check_tc(p, (0, 1, 2), fn=off)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_band_plain_matches_scipy_and_well_apply(ico3, dtype):
     H = ico3
