@@ -12,8 +12,9 @@ prints one JSON line with ``bench.py``'s ``metric``, ``value`` and ``unit``:
   ``build/`` with ``save_hierarchy``), then chained V-cycles timed with
   CUDA events at two cycle counts (the slope; u is normalised after each
   cycle). Beside the time: Gnnz/s, the bytes of a cycle and their bound at
-  the HBM rate (``utils/bounds``), the idle share of one profiled cycle,
-  the launches a cycle, the levels and the host build times;
+  the HBM rate (``utils/bounds``), the device time and operations of one
+  profiled cycle, the launches a cycle, the levels and the host build
+  times;
 - the detail, ``icosphere(7)`` through the public precompute, timed the
   same way, with the residual reduction per cycle of ``solve_loop`` over
   8 cycles;
@@ -238,8 +239,8 @@ def chained_ms(cycle, b, dev):
 
 def profiled(fn, dev, sessions=3):
     """One profiler session of fn on the card: device busy ms (the kernels'
-    and copies' summed durations), device operations recorded, the call's
-    wall between CUDA events, and the idle share 1 - busy / wall. A session
+    and copies' summed durations), device operations recorded and the
+    call's wall between CUDA events (inflated by the profiler). A session
     that records no device event is taken again (up to ``sessions``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -257,8 +258,7 @@ def profiled(fn, dev, sessions=3):
         if ev:
             busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
             wall = e0.elapsed_time(e1)
-            return {"device_busy_ms": busy, "device_ops": len(ev), "profiled_ms": wall,
-                    "idle_share": 1.0 - busy / wall}
+            return {"device_busy_ms": busy, "device_ops": len(ev), "profiled_ms": wall}
         time.sleep(1.0)
     raise RuntimeError(f"the profiler recorded no device event in {sessions} sessions")
 
@@ -448,7 +448,7 @@ def run(device="cuda", cache_dir=CACHE_DIR) -> dict:
         head, bal = None, None
         det = detail(CPU_ORDER, dev, torch.float64, cache_dir)
         skipped = [f"headline icosphere({HEADLINE_ORDER})", "balloon_step_ms",
-                   "bound, idle share and launches (the card's)"]
+                   "bound, profiled cycle and launches (the card's)"]
     launches1, plain1 = kernel_counts()
     checks = {"detail_residual": det["check"]["ok"]}
     if head is not None:

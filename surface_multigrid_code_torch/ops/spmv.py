@@ -23,16 +23,22 @@ not fit the card in one wave. A CPU tensor goes to ``fused_spmv_plain``,
 the plain PyTorch version of the same function. There is no other route.
 The TPU's ``acc`` chaining over slot groups (``well_apply``) is a layout
 artifact and has no counterpart.
+
+While a ``torch.profiler`` session records, each call, from entry to
+return on either route, adds its host time to the counter ``smg.spmv`` of
+``utils.profiler`` (no span: the launch is on the trace already).
 """
 
 from __future__ import annotations
 
 import functools
+import time
 
 import torch
 
 from surface_multigrid_code_torch._build import load_library
 from surface_multigrid_code_torch.ops.sparse import CSRMatrix, csr_spmv
+from surface_multigrid_code_torch.utils.profiler import record, recording
 
 _LANES = (1, 2, 4, 8, 16, 32)
 _EPI_CODE = {None: 0, "axpby": 1, "resid": 2, "add": 3, "resid_scaled": 4}
@@ -142,6 +148,15 @@ def fused_spmv(A: CSRMatrix, x: torch.Tensor, epi: str | None = None,
     multi-column kernel (K2) also add one to ``fused_spmv.planes_launches``.
     ``fused_spmv.last_lanes`` is the sub-warp width of the last launch.
     """
+    if not recording():
+        return _fused_spmv(A, x, epi, b, u, s, escale, rows, out)
+    t0 = time.perf_counter_ns()
+    y = _fused_spmv(A, x, epi, b, u, s, escale, rows, out)
+    record("smg.spmv", 1e-9 * (time.perf_counter_ns() - t0))
+    return y
+
+
+def _fused_spmv(A: CSRMatrix, x: torch.Tensor, epi, b, u, s, escale, rows, out):
     if x.device.type == "cpu":
         return fused_spmv_plain(A, x, epi, b, u, s, escale, rows, out)
     if x.device.type != "cuda":

@@ -77,11 +77,54 @@ def min_quad_with_fixed_mg_precompute(
     """Precompute solver data on ``device`` (the card unless the caller
     passes ``device="cpu"``). `known=None` or empty = unconstrained overload."""
     device = resolve_device(device)
+    with profile_region("smg.precompute", trace=True):
+        return _precompute(A, known, mg, cfg, device, dtype, colorings)
+
+
+def _precompute(A, known, mg, cfg, device, dtype, colorings) -> MQWFData:
+    """The precompute's phases, each a region of ``utils.profiler`` under
+    ``smg.precompute``: ``.symmetry``, ``.galerkin``, ``.coloring`` (multicolor
+    GS only), and in ``build_device_hierarchy`` ``.device_build`` and
+    ``.coarse_inverse``."""
     A = A.tocsr().astype(np.float64)
     n = A.shape[0]
-    if (abs(A - A.T) > 1e-10 * max(1.0, abs(A).max())).nnz != 0:
-        raise ValueError("input matrix must be symmetric")
+    with profile_region("smg.precompute.symmetry", trace=True):
+        if (abs(A - A.T) > 1e-10 * max(1.0, abs(A).max())).nnz != 0:
+            raise ValueError("input matrix must be symmetric")
 
+    with profile_region("smg.precompute.galerkin", trace=True):
+        known, unknown, LHS, Auk = _galerkin(A, known, mg, cfg)
+
+    # Row colorings depend only on each level's sparsity, which is static
+    # across value refreshes: computed once, callers may pass them back in.
+    if colorings is None and cfg.smoother == SmootherType.MULTICOLOR_GS:
+        with profile_region("smg.precompute.coloring", trace=True):
+            colorings = [greedy_coloring(mg[lv].A) for lv in range(len(mg) - 1)]
+
+    hier = build_device_hierarchy(
+        [lvl.A for lvl in mg],
+        [mg[lv].P for lv in range(1, len(mg))],
+        cfg=cfg,
+        device=device,
+        dtype=dtype,
+        colorings=colorings,
+    )
+    A64 = None
+    if dtype != torch.float64:
+        A64 = csr_from_scipy(mg[0].A, device, torch.float64)
+
+    return MQWFData(
+        n=n, known=known, unknown=unknown, LHS=LHS, Auk=Auk, hier=hier,
+        cfg=cfg, dtype=dtype, device=device,
+        colorings=colorings, A64=A64,
+    )
+
+
+def _galerkin(A, known, mg, cfg):
+    """Sets P, PT and the Galerkin A of every level on ``mg`` (the
+    coarsest diagonal shifted) and their diagonals; returns (known,
+    unknown, LHS, Auk)."""
+    n = A.shape[0]
     if known is None or len(known) == 0:
         known = np.zeros(0, dtype=np.int64)
         unknown = np.arange(n, dtype=np.int64)
@@ -132,29 +175,7 @@ def min_quad_with_fixed_mg_precompute(
     mg[-1].A = Ac.tocsr()
     for lv in range(len(mg)):
         mg[lv].A_diag = mg[lv].A.diagonal()
-
-    # Row colorings depend only on each level's sparsity, which is static
-    # across value refreshes: computed once, callers may pass them back in.
-    if colorings is None and cfg.smoother == SmootherType.MULTICOLOR_GS:
-        colorings = [greedy_coloring(mg[lv].A) for lv in range(len(mg) - 1)]
-
-    hier = build_device_hierarchy(
-        [lvl.A for lvl in mg],
-        [mg[lv].P for lv in range(1, len(mg))],
-        cfg=cfg,
-        device=device,
-        dtype=dtype,
-        colorings=colorings,
-    )
-    A64 = None
-    if dtype != torch.float64:
-        A64 = csr_from_scipy(mg[0].A, device, torch.float64)
-
-    return MQWFData(
-        n=n, known=known, unknown=unknown, LHS=LHS, Auk=Auk, hier=hier,
-        cfg=cfg, dtype=dtype, device=device,
-        colorings=colorings, A64=A64,
-    )
+    return known, unknown, LHS, Auk
 
 
 def min_quad_with_fixed_mg_solve(

@@ -14,6 +14,12 @@ sides, which run the multi-column kernel).
 PyTorch runs eagerly, so the recursion is a Python loop of kernel
 launches, and the solve loops check ``res < tol`` on the host once per
 cycle (one device sync per cycle).
+
+While a ``torch.profiler`` session records, the loops open the spans of
+``utils.profiler.span``: ``smg.solve`` (the call), ``smg.test`` (the host
+read of the residual test), ``smg.cycle`` (each ``vcycle``) and, nested,
+``smg.level.<l>`` (each level of the recursion, the coarsest level's dense
+correction included). Without a session each costs a flag check.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from surface_multigrid_code_torch.ops.smoothers import (
 )
 from surface_multigrid_code_torch.ops.sparse import CSRMatrix, csr_from_scipy
 from surface_multigrid_code_torch.ops.spmv import fused_spmv
+from surface_multigrid_code_torch.utils.profiler import profile_region, span
 
 # The coarse correction coarse_inv @ b is a plain dense matmul. TF32 would
 # round its inputs to a 10-bit mantissa (about three digits) and cap every
@@ -115,32 +122,36 @@ def build_device_hierarchy(
     Ps: prolongations, Ps[l] maps level l+1 -> level l (len L-1).
     colorings: optional cached row colorings (sparsity is static across
     value refreshes).
+
+    Its two phases record as ``smg.precompute.device_build`` and
+    ``smg.precompute.coarse_inverse`` on every call, inside a precompute
+    or not.
     """
     L = len(As)
     levels = []
-    for lv in range(L):
-        A = sp.csr_matrix(As[lv])
-        diag = torch.as_tensor(A.diagonal(), dtype=torch.float64).to(device, dtype)
-        groups = ()
-        if cfg.smoother == SmootherType.MULTICOLOR_GS and lv < L - 1:
-            color = colorings[lv] if colorings is not None else greedy_coloring(A)
-            groups = tuple(
-                torch.as_tensor(g, device=device) for g in color_groups(color)
-            )
-        P = PT = None
-        if lv > 0:
-            P = csr_from_scipy(Ps[lv - 1], device, dtype)
-            PT = csr_from_scipy(sp.csr_matrix(Ps[lv - 1]).T.tocsr(), device, dtype)
-        lam_max = None
-        if cfg.smoother == SmootherType.CHEBYSHEV:
-            lam_max = _power_iteration_lam_max(A)
-        levels.append(DeviceLevel(
-            csr_from_scipy(A, device, dtype), diag, P, PT, groups, lam_max,
-        ))
-    Cinv = coarse_pseudo_inverse(As[-1])
-    return DeviceHierarchy(
-        levels, torch.as_tensor(Cinv).to(device=device, dtype=dtype)
-    )
+    with profile_region("smg.precompute.device_build", trace=True):
+        for lv in range(L):
+            A = sp.csr_matrix(As[lv])
+            diag = torch.as_tensor(A.diagonal(), dtype=torch.float64).to(device, dtype)
+            groups = ()
+            if cfg.smoother == SmootherType.MULTICOLOR_GS and lv < L - 1:
+                color = colorings[lv] if colorings is not None else greedy_coloring(A)
+                groups = tuple(
+                    torch.as_tensor(g, device=device) for g in color_groups(color)
+                )
+            P = PT = None
+            if lv > 0:
+                P = csr_from_scipy(Ps[lv - 1], device, dtype)
+                PT = csr_from_scipy(sp.csr_matrix(Ps[lv - 1]).T.tocsr(), device, dtype)
+            lam_max = None
+            if cfg.smoother == SmootherType.CHEBYSHEV:
+                lam_max = _power_iteration_lam_max(A)
+            levels.append(DeviceLevel(
+                csr_from_scipy(A, device, dtype), diag, P, PT, groups, lam_max,
+            ))
+    with profile_region("smg.precompute.coarse_inverse", trace=True):
+        Cinv = torch.as_tensor(coarse_pseudo_inverse(As[-1])).to(device=device, dtype=dtype)
+    return DeviceHierarchy(levels, Cinv)
 
 
 def _power_iteration_lam_max(A: sp.spmatrix, iters: int = 20) -> float:
@@ -193,12 +204,14 @@ def vcycle(
         r = fused_spmv(level.A, U, epi="resid", b=B)
         nxt = hier.levels[lv + 1]
         rc = fused_spmv(nxt.PT, r)
-        uc = go(lv + 1, rc, torch.zeros_like(rc))
+        with span(f"smg.level.{lv + 1}"):
+            uc = go(lv + 1, rc, torch.zeros_like(rc))
         U = fused_spmv(nxt.P, uc, epi="add", u=U)
         return _relax(level, B, U, cfg, cfg.post_relax_iter)
 
     # the in-place GS sweeps must not write into the caller's u
-    return go(0, b, u.clone())
+    with span("smg.cycle"), span("smg.level.0"):
+        return go(0, b, u.clone())
 
 
 def _residual_norm(A: CSRMatrix, z, rhs) -> torch.Tensor:
@@ -224,13 +237,16 @@ def solve_loop(
     r_his = torch.full((max_iter,), -1.0, dtype=rhs.dtype, device=rhs.device)
     z = z0
     k = 0
-    while k < max_iter:
-        res = _residual_norm(A0, z, rhs)
-        r_his[k] = res
-        k += 1
-        if bool(res < tol_t):
-            break
-        z = vcycle(hier, rhs, z, cfg)
+    with span("smg.solve"):
+        while k < max_iter:
+            res = _residual_norm(A0, z, rhs)
+            r_his[k] = res
+            k += 1
+            with span("smg.test"):
+                done = bool(res < tol_t)
+            if done:
+                break
+            z = vcycle(hier, rhs, z, cfg)
     return z, r_his, k
 
 
@@ -260,14 +276,17 @@ def solve_loop_ir(
     r_his = torch.full((max_iter,), -1.0, dtype=torch.float64, device=rhs.device)
     z = z0.to(torch.float64)
     k = 0
-    while k < max_iter:
-        r = fused_spmv(A64, z, epi="resid", b=rhs)
-        res = torch.sqrt((r * r).sum())
-        r_his[k] = res
-        k += 1
-        if bool(res < tol_t):
-            break
-        rl = r.to(cycle_dtype)
-        e = vcycle(hier, rl, torch.zeros_like(rl), cfg)
-        z = z + e.to(torch.float64)
+    with span("smg.solve"):
+        while k < max_iter:
+            r = fused_spmv(A64, z, epi="resid", b=rhs)
+            res = torch.sqrt((r * r).sum())
+            r_his[k] = res
+            k += 1
+            with span("smg.test"):
+                done = bool(res < tol_t)
+            if done:
+                break
+            rl = r.to(cycle_dtype)
+            e = vcycle(hier, rl, torch.zeros_like(rl), cfg)
+            z = z + e.to(torch.float64)
     return z, r_his, k
