@@ -670,11 +670,12 @@ def chain_ms(chain, ctx):
 def timings(depth, V, M, datas, dev):
     """Phase 6: V-cycle times, kernel vs plain, in turns."""
     from surface_multigrid_code_torch.ops.spmv import fused_spmv
-    from surface_multigrid_code_torch.solver.vcycle import vcycle
+    from surface_multigrid_code_torch.solver.vcycle import to_hierarchy_order, vcycle
 
-    b = torch.as_tensor(np.asarray(M @ V[:, 0]), dtype=torch.float32, device=dev)
+    b0 = torch.as_tensor(np.asarray(M @ V[:, 0]), dtype=torch.float32, device=dev)
     vc = {}
     for sm, data in datas.items():
+        b = to_hierarchy_order(data.hier, b0)
         z = torch.zeros_like(b)
 
         def chain(n=10):

@@ -4,7 +4,8 @@ The port of ``surface_multigrid_code_tpu`` (JAX on a TPU) to PyTorch on an
 NVIDIA H100. Module names mirror the JAX package. It carries these paths:
 
 - the static Galerkin multigrid solve: mg_precompute ->
-  min_quad_with_fixed_mg_precompute -> build_device_hierarchy ->
+  min_quad_with_fixed_mg_precompute -> build_device_hierarchy (then
+  ordered_hierarchy, where the finest band outgrows the L2) ->
   solve_loop / solve_loop_ir -> vcycle;
 - mean-curvature flow (``MCFStepper``): per step the barycentric mass, a
   device Galerkin value refresh on the fixed hierarchy

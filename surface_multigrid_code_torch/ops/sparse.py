@@ -73,6 +73,27 @@ def csr_from_scipy(A: sp.spmatrix, device, dtype=torch.float32) -> CSRMatrix:
     )
 
 
+def inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
+    """inv with inv[perm[i]] = i (int64, on perm's device)."""
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], dtype=perm.dtype, device=perm.device)
+    return inv
+
+
+def csr_permuted(A: CSRMatrix, rows: torch.Tensor, cols: torch.Tensor) -> CSRMatrix:
+    """A[rows][:, cols] on A's device, with the column ids of each row
+    ascending as ``csr_from_scipy`` uploads them. rows, cols: int64
+    permutations on that device, new id -> old id. One gather of the
+    column ids through the inverse and one sort by (row, column)."""
+    n, m = A.shape
+    new_row = inverse_permutation(rows)[csr_row_ids(A)]
+    new_col = inverse_permutation(cols)[A.indices.long()]
+    order = torch.argsort(new_row * m + new_col)
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device=rows.device)
+    indptr[1:] = torch.cumsum(torch.bincount(new_row, minlength=n), 0)
+    return CSRMatrix(indptr.int(), new_col[order].int(), A.data[order], m)
+
+
 def csr_row_ids(A: CSRMatrix) -> torch.Tensor:
     """Row id of every stored nonzero (int64 [nnz])."""
     return row_ids(A.indptr, A.data.shape[0])

@@ -17,6 +17,13 @@ Reproduces the semantics of reference src/min_quad_with_fixed_mg.{h,cpp}:
 
 The host does the sparse slicing and Galerkin products with SciPy; the
 iteration runs on the device given at precompute.
+
+Where the finest operator's band streams more than the card's L2 in a
+sweep, the device hierarchy is kept in a locality ordering, finest
+reverse Cuthill-McKee and the orderings it induces below
+(``solver.ordering.locality_ordering``), so the SpMV gathers stay in the
+L2; the solve loops map the right-hand side and the answer across it. The host operators on ``mg`` and ``LHS`` keep the
+caller's order.
 """
 
 from __future__ import annotations
@@ -29,15 +36,17 @@ import torch
 
 from surface_multigrid_code_torch.config import SmootherType, SolveConfig
 from surface_multigrid_code_torch.ops.smoothers import greedy_coloring
-from surface_multigrid_code_torch.ops.sparse import CSRMatrix, csr_from_scipy
+from surface_multigrid_code_torch.ops.sparse import CSRMatrix, csr_from_scipy, csr_permuted
 from surface_multigrid_code_torch.solver.hierarchy import MGLevel
+from surface_multigrid_code_torch.solver.ordering import locality_ordering
 from surface_multigrid_code_torch.solver.vcycle import (
     DeviceHierarchy,
     build_device_hierarchy,
+    ordered_hierarchy,
     solve_loop,
     solve_loop_ir,
 )
-from surface_multigrid_code_torch.utils.device import resolve_device
+from surface_multigrid_code_torch.utils.device import l2_bytes, resolve_device
 from surface_multigrid_code_torch.utils.profiler import profile_region
 
 
@@ -57,10 +66,11 @@ class MQWFData:
     device: torch.device
     colorings: list[np.ndarray] | None = None
     # finest operator in f64 for mixed-precision iterative refinement
-    # (built when the hierarchy dtype is not f64)
+    # (built when the hierarchy dtype is not f64), in the hierarchy's order
     A64: CSRMatrix | None = None
-    # the JAX package's RCM row ordering for its windowed TPU kernel; the
-    # port has no such layout, so this is always None
+    # the finest level's locality ordering (perm[newrow] = oldrow) that the
+    # device hierarchy keeps, a host copy of hier.perm; None where the
+    # finest band fits in the L2 and the caller's order is kept
     perm: np.ndarray | None = None
 
 
@@ -84,8 +94,10 @@ def min_quad_with_fixed_mg_precompute(
 def _precompute(A, known, mg, cfg, device, dtype, colorings) -> MQWFData:
     """The precompute's phases, each a region of ``utils.profiler`` under
     ``smg.precompute``: ``.symmetry``, ``.galerkin``, ``.coloring`` (multicolor
-    GS only), and in ``build_device_hierarchy`` ``.device_build`` and
-    ``.coarse_inverse``."""
+    GS only), in ``build_device_hierarchy`` ``.device_build`` and
+    ``.coarse_inverse``, then ``.ordering``. Every derived quantity (the
+    diagonals, colors, Chebyshev bounds, the coarse inverse) is computed
+    in the caller's order and permuted with the levels."""
     A = A.tocsr().astype(np.float64)
     n = A.shape[0]
     with profile_region("smg.precompute.symmetry", trace=True):
@@ -113,10 +125,18 @@ def _precompute(A, known, mg, cfg, device, dtype, colorings) -> MQWFData:
     if dtype != torch.float64:
         A64 = csr_from_scipy(mg[0].A, device, torch.float64)
 
+    with profile_region("smg.precompute.ordering", trace=True):
+        perms = locality_ordering(mg[0].A, [mg[lv].P for lv in range(1, len(mg))],
+                                  l2_bytes(device), dtype.itemsize)
+        if perms is not None:
+            hier = ordered_hierarchy(hier, perms)
+            if A64 is not None:
+                A64 = csr_permuted(A64, hier.perm, hier.perm)
+
     return MQWFData(
         n=n, known=known, unknown=unknown, LHS=LHS, Auk=Auk, hier=hier,
         cfg=cfg, dtype=dtype, device=device,
-        colorings=colorings, A64=A64,
+        colorings=colorings, A64=A64, perm=None if perms is None else perms[0],
     )
 
 

@@ -8,7 +8,13 @@ Cuthill-McKee; coarser levels take the ordering *induced* by the finest
 prolongation column touches), so a coarse block lines up with the fine
 block it restricts from and Pᵀ's stencils stay near the block boundary.
 
-The functions are the JAX package's, held bit-identical
+The same ordering keeps the static precompute's SpMV gathers local on one
+card where the finest band streams more than the L2 (``locality_ordering``):
+a row's columns lie within the narrowed band, so the gathered vector's
+lines are still in the L2 when the next rows read them.
+
+``finest_rcm``, ``induced_orderings``, ``permute_hierarchy`` and
+``nnz_permutation_map`` are the JAX package's, held bit-identical
 (``tests/test_torch_host.py``); numpy and scipy only.
 """
 
@@ -24,6 +30,33 @@ def finest_rcm(A: sp.spmatrix) -> np.ndarray:
     return np.asarray(
         reverse_cuthill_mckee(A.tocsr(), symmetric_mode=True), dtype=np.int64
     )
+
+
+def bandwidth(A: sp.spmatrix) -> int:
+    """max |i - j| over the stored entries of A."""
+    A = A.tocsr()
+    rows = np.repeat(np.arange(A.shape[0], dtype=np.int64), np.diff(A.indptr))
+    return int(np.abs(rows - A.indices).max(initial=0))
+
+
+def locality_ordering(
+    A: sp.spmatrix, Ps: list[sp.spmatrix], cache_bytes: int, itemsize: int
+) -> list[np.ndarray] | None:
+    """The finest RCM of A and the orderings it induces through Ps
+    (``induced_orderings``), or None where A's band fits in the cache.
+
+    A gather reaches back at most A's bandwidth rows. Where those rows
+    stream at most ``cache_bytes`` in a one-column sweep (the row pointer,
+    each nonzero's column id and value, and five vectors, values and
+    vectors of ``itemsize`` bytes), a gathered line is still cached when
+    the band comes back to it, whatever the order: a mesh whose finest
+    level fits in the cache, or an input already in a banded order, keeps
+    its order."""
+    n = A.shape[0]
+    row_bytes = 4 + A.nnz / max(n, 1) * (4 + itemsize) + 5 * itemsize
+    if bandwidth(A) * row_bytes <= cache_bytes:
+        return None
+    return induced_orderings(finest_rcm(A), Ps)
 
 
 def induced_orderings(

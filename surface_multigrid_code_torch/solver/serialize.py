@@ -15,7 +15,8 @@ structure of the closed set of containers with ``save_pytree`` /
 Format: one ``torch.save`` file holding {"spec": a JSON string, "tensors":
 the list of tensors, saved from the CPU}. The spec names each container
 with the constructor arguments it needs (``n_cols``, ``lam_max``, the GS
-groups as a tuple of tensors), the buffers a constructor derives (``dinv``)
+groups as a tuple of tensors, the hierarchy's ``perm``), the buffers a
+constructor derives (``dinv``, ``iperm``)
 and the matrices' ``lanes``, so a load rebuilds the modules and then
 restores every tensor as saved, bit for bit and with its dtype (float64 and
 int64 included). ``torch.load(weights_only=True)`` reads it: nothing but
@@ -49,7 +50,7 @@ def _registry() -> dict:
         "CSRMatrix": (CSRMatrix, ("indptr", "indices", "data", "n_cols"), ()),
         "BSRMatrix": (BSRMatrix, ("indptr", "indices", "blocks", "n_cols"), ()),
         "DeviceLevel": (DeviceLevel, ("A", "diag", "P", "PT", "groups", "lam_max"), ("dinv",)),
-        "DeviceHierarchy": (DeviceHierarchy, ("levels", "coarse_inv"), ()),
+        "DeviceHierarchy": (DeviceHierarchy, ("levels", "coarse_inv", "perm"), ("iperm",)),
         "BsrLevel": (BsrLevel, ("A", "diag", "P", "PT", "lam_max"), ("dinv",)),
         "BsrHierarchy": (BsrHierarchy, ("levels", "coarse_inv"), ()),
     }
@@ -121,8 +122,8 @@ def load_pytree(path, device="cuda"):
 
 def save_device_hierarchy(path, hier) -> None:
     """Write a ``DeviceHierarchy`` or ``BsrHierarchy`` (every level's
-    operators, diagonals, GS groups, Chebyshev bounds and the coarse
-    inverse) to ``path``."""
+    operators, diagonals, GS groups, Chebyshev bounds, the coarse inverse
+    and a ``DeviceHierarchy``'s row ordering) to ``path``."""
     save_pytree(path, hier)
 
 

@@ -15,14 +15,24 @@ PyTorch runs eagerly, so the recursion is a Python loop of kernel
 launches, and the solve loops check ``res < tol`` on the host once per
 cycle (one device sync per cycle).
 
+A hierarchy may keep its levels in a locality ordering of its own
+(``DeviceHierarchy.perm``, set by ``ordered_hierarchy``): the solve loops
+then gather the right-hand side and the initial guess into that order on
+entry and the answer back on exit, so their callers see their own order,
+while ``vcycle`` works in the hierarchy's (``to_hierarchy_order``).
+
 While a ``torch.profiler`` session records, the loops open the spans of
 ``utils.profiler.span``: ``smg.solve`` (the call), ``smg.test`` (the host
 read of the residual test), ``smg.cycle`` (each ``vcycle``) and, nested,
 ``smg.level.<l>`` (each level of the recursion, the coarsest level's dense
-correction included). Without a session each costs a flag check.
+correction included); on an ordered hierarchy the ``smg.permute`` counter
+takes one entry a solve, the host time of both maps. Without a session
+each costs a flag check.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import scipy.sparse as sp
@@ -37,9 +47,14 @@ from surface_multigrid_code_torch.ops.smoothers import (
     jacobi_sweep,
     multicolor_gs_sweep,
 )
-from surface_multigrid_code_torch.ops.sparse import CSRMatrix, csr_from_scipy
+from surface_multigrid_code_torch.ops.sparse import (
+    CSRMatrix,
+    csr_from_scipy,
+    csr_permuted,
+    inverse_permutation,
+)
 from surface_multigrid_code_torch.ops.spmv import fused_spmv
-from surface_multigrid_code_torch.utils.profiler import profile_region, span
+from surface_multigrid_code_torch.utils.profiler import profile_region, record, recording, span
 
 # The coarse correction coarse_inv @ b is a plain dense matmul. TF32 would
 # round its inputs to a 10-bit mantissa (about three digits) and cap every
@@ -78,12 +93,20 @@ class DeviceLevel(nn.Module):
 
 
 class DeviceHierarchy(nn.Module):
-    """The levels, finest first, and the dense (pseudo-)inverse of the coarsest A."""
+    """The levels, finest first, and the dense (pseudo-)inverse of the coarsest A.
 
-    def __init__(self, levels: list[DeviceLevel], coarse_inv: torch.Tensor):
+    perm: None where the levels keep the caller's row order; otherwise the
+    finest level's permutation (int64, perm[newrow] = oldrow) that
+    ``ordered_hierarchy`` put them in, with its inverse ``iperm``.
+    """
+
+    def __init__(self, levels: list[DeviceLevel], coarse_inv: torch.Tensor,
+                 perm: torch.Tensor | None = None):
         super().__init__()
         self.levels = nn.ModuleList(levels)
         self.register_buffer("coarse_inv", coarse_inv)
+        self.register_buffer("perm", perm)
+        self.register_buffer("iperm", None if perm is None else inverse_permutation(perm))
 
     @property
     def n_levels(self) -> int:
@@ -154,6 +177,37 @@ def build_device_hierarchy(
     return DeviceHierarchy(levels, Cinv)
 
 
+def ordered_hierarchy(hier: DeviceHierarchy, perms: list[np.ndarray]) -> DeviceHierarchy:
+    """``hier``, built in the caller's order, with level l in the order
+    perms[l] (new id -> old id, ``solver.ordering.locality_ordering``):
+    A_l -> A_l[p_l][:, p_l], P_l -> P_l[p_{l-1}][:, p_l], Pᵀ_l alike, and
+    the diagonals and the coarse inverse permuted. A row keeps its GS color
+    and every level its Chebyshev bound: each derived quantity is the one
+    computed in the given order, so the iterates are the given order's,
+    permuted, up to the order of the sums. The operators are permuted on
+    their device (``ops.sparse.csr_permuted``)."""
+    dev = hier.coarse_inv.device
+    ps = [torch.as_tensor(p, dtype=torch.int64, device=dev) for p in perms]
+    levels = []
+    for lv, level in enumerate(hier.levels):
+        p, inv = ps[lv], inverse_permutation(ps[lv])
+        P = PT = None
+        if lv > 0:
+            P = csr_permuted(level.P, ps[lv - 1], p)
+            PT = csr_permuted(level.PT, p, ps[lv - 1])
+        groups = tuple(torch.sort(inv[g.long()]).values.to(g.dtype) for g in level.groups)
+        levels.append(DeviceLevel(csr_permuted(level.A, p, p), level.diag[p], P, PT, groups,
+                                  level.lam_max))
+    coarse_inv = hier.coarse_inv[ps[-1]][:, ps[-1]]
+    return DeviceHierarchy(levels, coarse_inv, ps[0])
+
+
+def to_hierarchy_order(hier: DeviceHierarchy, x: torch.Tensor) -> torch.Tensor:
+    """x ([n] or [n, C], the caller's row order) in the hierarchy's order:
+    x[hier.perm], or x itself where the hierarchy keeps the caller's."""
+    return x if hier.perm is None else x.index_select(0, hier.perm)
+
+
 def _power_iteration_lam_max(A: sp.spmatrix, iters: int = 20) -> float:
     """Largest eigenvalue of D^-1 A via host power iteration (Chebyshev
     smoothing bound); 10% safety margin as is conventional."""
@@ -191,7 +245,8 @@ def vcycle(
 ) -> torch.Tensor:
     """One V-cycle on the finest level; returns a new tensor (u is not modified).
 
-    b/u: flat [n] or multi-column [n, C].
+    b/u: flat [n] or multi-column [n, C], in the hierarchy's row order
+    (``to_hierarchy_order``).
     """
     L = hier.n_levels
 
@@ -230,14 +285,19 @@ def solve_loop(
     """Reference solve loop (src/min_quad_with_fixed_mg.cpp:330-347):
     each iteration records ||rhs - A z|| (Frobenius norm for multi-RHS),
     stops *before* cycling when below tol. Returns (z, r_his, n_recorded);
-    r_his is padded to max_iter with -1.
+    r_his is padded to max_iter with -1. rhs, z0 and z are in the caller's
+    row order, whatever the hierarchy's.
     """
     A0 = hier.levels[0].A
     tol_t = torch.tensor(tol, dtype=rhs.dtype, device=rhs.device)
     r_his = torch.full((max_iter,), -1.0, dtype=rhs.dtype, device=rhs.device)
-    z = z0
     k = 0
     with span("smg.solve"):
+        z = z0
+        if hier.perm is not None:  # the entry map; smg.permute times it with the exit's
+            t0 = time.perf_counter_ns() if recording() else 0
+            rhs, z = rhs.index_select(0, hier.perm), z.index_select(0, hier.perm)
+            t_map = time.perf_counter_ns() - t0 if t0 else 0
         while k < max_iter:
             res = _residual_norm(A0, z, rhs)
             r_his[k] = res
@@ -247,6 +307,11 @@ def solve_loop(
             if done:
                 break
             z = vcycle(hier, rhs, z, cfg)
+        if hier.perm is not None:  # the exit map
+            t0 = time.perf_counter_ns() if recording() else 0
+            z = z.index_select(0, hier.iperm)
+            if t0:
+                record("smg.permute", 1e-9 * (t_map + time.perf_counter_ns() - t0))
     return z, r_his, k
 
 
@@ -268,15 +333,19 @@ def solve_loop_ir(
 
     A V-cycle is an affine iteration u + B(b - A u) with linear B, so in
     exact arithmetic these iterates equal solve_loop's; r_his has the same
-    semantics, but the attainable floor is f64's instead of f32's.
+    semantics, but the attainable floor is f64's instead of f32's. A64 is
+    in the hierarchy's row order; rhs, z0 and z in the caller's.
     """
     cycle_dtype = hier.levels[0].diag.dtype
-    rhs = rhs.to(torch.float64)
     tol_t = torch.tensor(tol, dtype=torch.float64, device=rhs.device)
     r_his = torch.full((max_iter,), -1.0, dtype=torch.float64, device=rhs.device)
-    z = z0.to(torch.float64)
     k = 0
     with span("smg.solve"):
+        rhs, z = rhs.to(torch.float64), z0.to(torch.float64)
+        if hier.perm is not None:  # the entry map; smg.permute times it with the exit's
+            t0 = time.perf_counter_ns() if recording() else 0
+            rhs, z = rhs.index_select(0, hier.perm), z.index_select(0, hier.perm)
+            t_map = time.perf_counter_ns() - t0 if t0 else 0
         while k < max_iter:
             r = fused_spmv(A64, z, epi="resid", b=rhs)
             res = torch.sqrt((r * r).sum())
@@ -289,4 +358,9 @@ def solve_loop_ir(
             rl = r.to(cycle_dtype)
             e = vcycle(hier, rl, torch.zeros_like(rl), cfg)
             z = z + e.to(torch.float64)
+        if hier.perm is not None:  # the exit map
+            t0 = time.perf_counter_ns() if recording() else 0
+            z = z.index_select(0, hier.iperm)
+            if t0:
+                record("smg.permute", 1e-9 * (t_map + time.perf_counter_ns() - t0))
     return z, r_his, k

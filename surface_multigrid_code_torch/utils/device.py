@@ -20,3 +20,14 @@ def resolve_device(device) -> torch.device:
             "points), but torch sees no CUDA device; pass device='cpu' to run "
             "the plain PyTorch versions on the CPU")
     return dev
+
+
+def l2_bytes(device) -> int:
+    """The L2 cache of ``device``'s card in bytes (50 MiB on the H100): what
+    keeps a sweep's gathered lines for their reuse. 0 for the CPU, where
+    no cache is modelled, so the plain path there takes every ordering the
+    card would take at some size, and the CPU tests hold the ordered path."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return 0
+    return int(torch.cuda.get_device_properties(dev).L2_cache_size)

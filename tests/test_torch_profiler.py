@@ -12,7 +12,10 @@ against the JAX package's.
   ``smg.test``, ``smg.cycle`` and ``smg.level.<l>`` with the counts of its
   loop, nested on the profiler's timeline, and its answer is bit for bit
   the answer without a session;
-- the precompute's ``smg.precompute`` region holds the phases that ran;
+- the ``smg.permute`` counter takes one entry a solve on an ordered
+  hierarchy and none on one in the caller's order;
+- the precompute's ``smg.precompute`` region holds the phases that ran,
+  ``.ordering`` among them;
 - the benchmark's readers of those entries (``portbench/metrics/``);
 - ``pool_host_allocations`` honours the JAX package's opt-out variable;
 - the package exports ``get_prolong``, ``get_prolong_block`` and
@@ -227,14 +230,15 @@ def test_solve_loop_spans(small_system, smoother):
         z1, r1, k1, calls1 = solve()
     assert torch.equal(z1, z0) and torch.equal(r1, r0) and (k1, calls1) == (k0, calls0)
     assert 3 <= k1 < max_iter
+    assert data.hier.perm is not None
     levels = [f"smg.level.{lv}" for lv in range(data.hier.n_levels)]
     counts = {n: c for n, (c, _) in tprof.profiler_snapshot().items()}
     want = {"smg.solve": 1, "smg.test": k1, "smg.cycle": k1 - 1, "smg.spmv": calls1,
-            **{n: k1 - 1 for n in levels}}
+            "smg.permute": 1, **{n: k1 - 1 for n in levels}}
     assert counts == want
-    # on the profiler's timeline: every span but the counter, nested
+    # on the profiler's timeline: every span but the counters, nested
     traced = {e.key: e.count for e in prof.key_averages() if e.key.startswith("smg.")}
-    assert traced == {n: c for n, c in want.items() if n != "smg.spmv"}
+    assert traced == {n: c for n, c in want.items() if n not in ("smg.spmv", "smg.permute")}
     seen = set()
     for e in prof.events():
         if e.name.startswith("smg.level."):
@@ -254,12 +258,36 @@ def test_precompute_phases(small_system, smoother, constrained):
     _precompute(small_system, smoother, np.arange(0, 40, 7) if constrained else None)
     snap = tprof.profiler_snapshot()
     count, total = snap.pop("smg.precompute")
-    phases = {"symmetry", "galerkin", "device_build", "coarse_inverse"}
+    phases = {"symmetry", "galerkin", "device_build", "coarse_inverse", "ordering"}
     if smoother == "multicolor_gs":
         phases.add("coloring")
     assert set(snap) == {f"smg.precompute.{p}" for p in phases}
     assert count == 1 and all(c == 1 for c, _ in snap.values())
     assert sum(t for _, t in snap.values()) <= total
+
+
+@pytest.mark.parametrize("ordered", [True, False], ids=["ordered", "given_order"])
+def test_permute_counts_a_solve_on_an_ordered_hierarchy(small_system, ordered):
+    """Two solves under a session: two ``smg.permute`` entries on the
+    precompute's ordered hierarchy, none on ``build_device_hierarchy``'s
+    from the same operators; none without a session."""
+    from surface_multigrid_code_torch.config import SmootherType
+    from surface_multigrid_code_torch.solver.vcycle import build_device_hierarchy, solve_loop
+
+    data, cfg = _precompute(small_system, SmootherType.JACOBI)
+    mg = small_system[0]
+    hier = data.hier if ordered else build_device_hierarchy(
+        [lv.A for lv in mg], [lv.P for lv in mg[1:]], cfg, device="cpu", dtype=torch.float64)
+    assert (hier.perm is not None) == ordered
+    B = torch.as_tensor(small_system[2])
+    tprof.profiler_reset()
+    solve_loop(hier, B, torch.zeros_like(B), 1e-9, 20, cfg)
+    assert "smg.permute" not in tprof.profiler_snapshot()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(2):
+            solve_loop(hier, B, torch.zeros_like(B), 1e-9, 20, cfg)
+    count, seconds = tprof.profiler_snapshot().get("smg.permute", (0, 0.0))
+    assert count == (2 if ordered else 0) and seconds >= 0.0
 
 
 @pytest.mark.parametrize("metric, entry, planted, reading", [
